@@ -5,33 +5,42 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line:
+Phases, each printed as JSON lines:
 
 1. device  — ``nvidia-smi`` name and power limit, ``torch.cuda`` name.
-2. build   — both paged-attention kernels compiled with ``nvcc`` for sm_90a
-             from ``llmapigateway_tpu_torch/csrc/`` (build time, and ptxas's
-             registers, shared memory and spills per kernel).
+2. build   — every CUDA source in ``llmapigateway_tpu_torch/csrc/``
+             compiled for sm_90a, one ``nvcc`` per source, all started
+             together (build time, and ptxas's registers, shared memory
+             and spills per kernel).
 3. kernel  — each kernel's wrapper against its plain PyTorch version on the
-             same card tensors at the main path's shapes (bf16, llama-3-8b
-             heads): per-element error against the fp32 plain output under
-             the stated relative + absolute tolerance, and times (CUDA
-             events, median of 25 runs with L2 flushed before each) beside
-             the plain version, one library call on the gathered dense view
-             (``scaled_dot_product_attention``, timed only — the port never
-             calls it) and the least time the card could take. Then every
-             group size the kernels are built for, held the same way.
+             same card tensors at the main path's shapes (llama-3-8b heads):
+             the paged kernels over a page pool, the flash kernels over a
+             contiguous cache [8, 8, 4096, 128], each with a bf16 cache and
+             with an int8 cache and its fp32 scales. Per-element error
+             against the fp32 plain output under the stated relative +
+             absolute tolerance, and times (CUDA events, median of 25 runs
+             with L2 flushed before each) beside the plain version, one
+             library call on the dense view (``scaled_dot_product_attention``
+             on bf16 K/V; timed only — the port never calls it; no library
+             call takes int8 K/V with per-key scales) and the least time the
+             card could take. Then every group size the kernels are built
+             for, held the same way, for every kernel body.
 4. model   — a two-layer model of llama-3-8b head geometry through the
              port's forward on the card (kernels) against the same weights
-             through the plain path on the CPU in fp32; and the LM head at
-             llama-3-8b's shape, which must give fp32 logits equal to the
-             fp32 product of its bf16 operands.
+             through the plain path on the CPU in fp32, on both layouts and
+             both cache types; and the LM head at llama-3-8b's shape, which
+             must give fp32 logits equal to the fp32 product of its bf16
+             operands.
 5. serve   — the port's aiohttp app in-process on a local port with the
-             llama-3-8b config (full width and depth, random weights from a
-             seed): 2 SSE + 2 JSON concurrent requests whose prompts cross a
-             KV page and a prefill chunk. Launch counters are zeroed just
-             before and read just after; both kernels must have run, once
-             per layer per forward of their kind (a one-token prefill call
-             runs the decode kernel).
+             llama-3-8b config (full width, random weights from a seed),
+             once per served configuration: contiguous bf16 KV, contiguous
+             int8 KV, paged int8 KV and paged bf16 KV, each engine stopped
+             and its memory freed before the next is built. 2 SSE + 2 JSON
+             concurrent requests whose prompts cross a KV page and a prefill
+             chunk. Launch counters are zeroed just before each run and read
+             just after: the layout's kernels must have run once per layer
+             per forward of their kind (a one-token prefill call runs the
+             decode kernel), the other layout's not at all.
 6. the ``kernels`` line, the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import asyncio
 import functools
+import gc
 import json
 import os
 import socket
@@ -58,17 +68,18 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
 # Kernel vs plain, per element: the plain version runs in fp32 on the same
-# (bf16-valued) inputs; the kernel accumulates in fp32 and rounds its output
-# to bf16 once, which moves a value by at most half a bf16 ulp, 2^-8 of it.
-# The absolute term covers the fp32 summation order over up to 4096 keys
-# near an output of 0 (a few 1e-6). An element passes when
+# (bf16-valued, or int8 + fp32 scale) inputs; the kernel accumulates in fp32
+# and rounds its output to bf16 once, which moves a value by at most half a
+# bf16 ulp, 2^-8 of it. The absolute term covers the fp32 summation order
+# over up to 4096 keys near an output of 0 (a few 1e-6). An element passes
+# when
 #   |kernel - plain| <= KERNEL_RTOL * |plain| + KERNEL_ATOL.
 # The long rows average over ~1000-4000 keys (|out| ~ 0.03), so a kernel
-# that drops or mis-masks a 32-key tile there is off by well over 2^-8.
+# that drops or mis-masks a key there is off by well over 2^-8.
 KERNEL_RTOL = 2.0 ** -8
 KERNEL_ATOL = 2.0 ** -14
-# Decode groups (query heads per KV head) the kernel is built for, each held
-# to the plain version at H 32 and a batch of long and short slots.
+# Decode groups (query heads per KV head) the kernels are built for, each
+# held to the plain version at H 32 and a batch of long and short slots.
 GROUP_CASES = dict(B=4, H=32, n_stale=[0, 257, 1000, 4095], T=100,
                    starts=[0, 1000])
 # LM head: fp32 logits from bf16 operands, against the fp32 product of the
@@ -79,14 +90,27 @@ HEAD_REL_TOL = 2.0 ** -12
 # largest reference logit.
 MODEL_REL_TOL = 5e-2
 
-DECODE = dict(B=8, H=32, KV=8, Dh=128, page=256, NP=16,
+DECODE = dict(B=8, H=32, KV=8, Dh=128, page=256, NP=16, S=4096,
               n_stale=[0, 1, 255, 256, 257, 1000, 2047, 4095])
-PREFILL = dict(H=32, KV=8, Dh=128, page=256, NP=16, starts=[0, 256, 1000],
-               T=(512, 300))
-SERVE_ENGINE = {"preset": "llama-3-8b", "kv_layout": "paged",
-                "kv_page_size": 256, "kv_pages_per_block": 1,
-                "max_batch_size": 8, "max_seq_len": 4096,
-                "prefill_chunk": 512, "prefix_cache": False, "mesh": {}}
+PREFILL = dict(H=32, KV=8, Dh=128, page=256, NP=16, S=4096,
+               starts=[0, 256, 1000], T=(512, 300))
+LIBRARY_NONE = ("no single PyTorch call takes int8 K/V with per-key fp32 "
+                "scales")
+# The served configurations, in order. Weights (16 GB) and KV cache live on
+# the card one engine at a time.
+SERVE_BASE = {"preset": "llama-3-8b", "max_batch_size": 8,
+              "max_seq_len": 4096, "prefill_chunk": 512, "mesh": {}}
+SERVE_CONFIGS = [
+    ("contiguous-bf16", {"kv_layout": "contiguous", "kv_quant": ""}),
+    ("contiguous-int8", {"kv_layout": "contiguous", "kv_quant": "int8"}),
+    ("paged-int8", {"kv_layout": "paged", "kv_page_size": 256,
+                    "kv_pages_per_block": 1, "prefix_cache": False,
+                    "kv_quant": "int8"}),
+    ("paged-bf16", {"kv_layout": "paged", "kv_page_size": 256,
+                    "kv_pages_per_block": 1, "prefix_cache": False,
+                    "kv_quant": ""}),
+]
+SERVE_MAX_TOKENS = 32
 # Prompt lengths in bytes (one token each, plus the chat template's ~25):
 # one within a page, one across a page, two across a prefill chunk.
 SERVE_PROMPT_CHARS = (40, 300, 700, 1100)
@@ -119,7 +143,7 @@ def nvidia_smi_line() -> str:
 def cuda_ms(torch, fn, iters: int = 25, warmup: int = 3) -> float:
     """Median ms of ``fn`` on the card: a CUDA event pair per run, L2
     flushed (a 128 MB write) before each, as the main path finds each
-    layer's pool cold."""
+    layer's cache cold."""
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
@@ -148,32 +172,61 @@ def sdpa(torch, q, k, v, mask):
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def kv_bytes_per_key(quant: bool, KV: int, Dh: int) -> int:
+    """K and V bytes of one key position: bf16 values, or int8 values plus
+    one fp32 scale per head."""
+    return KV * (Dh + 4 if quant else Dh * 2) * 2
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _pool_and_table(torch, gen, B, KV, Dh, page, NP, live_pages):
-    """A bf16 pool with page 0 (trash) filled with a large finite value, and
-    a shuffled page table whose entries past each slot's live pages are 0 —
-    a kernel that reads the trash page for a live key, or a dead page, shows
-    up in the error."""
+def quantized(torch, x):
+    """A [N, KV, S, Dh] bf16 cache (or pool) → the port's int8 dict, through
+    the port's own quantizer."""
+    from llmapigateway_tpu_torch.models.llama import quantize_kv
+    q, s = quantize_kv(x)
+    return {"q": q, "s": s[:, :, None, :].contiguous()}
+
+
+def _pool_and_table(torch, gen, B, KV, Dh, page, NP, live_pages, quant):
+    """A pool with page 0 (trash) filled with a large finite value, and a
+    shuffled page table whose entries past each slot's live pages are 0 — a
+    kernel that reads the trash page for a live key, or a dead page, shows
+    up in the error. int8: the pool quantized, trash at q 127, scale 1e3."""
     P = B * NP + 1
-    pool_k = torch.randn((P, KV, page, Dh), generator=gen, device="cuda"
-                         ).to(torch.bfloat16)
-    pool_v = torch.randn((P, KV, page, Dh), generator=gen, device="cuda"
-                         ).to(torch.bfloat16)
-    pool_k[0] = 3e4
-    pool_v[0] = 3e4
+    pools = []
+    for _ in range(2):
+        pool = torch.randn((P, KV, page, Dh), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+        pool[0] = 3e4
+        if quant:
+            pool = quantized(torch, pool)
+            pool["q"][0] = 127
+            pool["s"][0] = 1e3
+        pools.append(pool)
     perm = torch.randperm(B * NP, generator=gen, device="cuda") + 1
     table = perm.reshape(B, NP).to(torch.int32)
     for b, n in enumerate(live_pages):
         table[b, n:] = 0
-    return pool_k, pool_v, table.contiguous()
+    return pools[0], pools[1], table.contiguous()
+
+
+def _cache(torch, gen, B, KV, S, Dh, quant):
+    """A contiguous cache layer [B, KV, S, Dh] of random values: positions
+    past a row's live keys hold values too, so a kernel that reads them
+    shows up in the error."""
+    c = torch.randn((B, KV, S, Dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return quantized(torch, c) if quant else c
 
 
 def _fp32(args):
-    """The plain versions' inputs: the same values, in fp32."""
-    return tuple(a.float() if a.is_floating_point() else a for a in args)
+    """The plain versions' inputs: the same values, floats in fp32 (int8
+    dicts as they are)."""
+    return tuple(a.float() if hasattr(a, "is_floating_point")
+                 and a.is_floating_point() else a for a in args)
 
 
 def held(torch, name: str, got, ref) -> dict:
@@ -186,140 +239,226 @@ def held(torch, name: str, got, ref) -> dict:
             "max_err_over_tol": ratio.max().item()}
 
 
-def decode_inputs(torch, gen, B, H, KV, n_list, page, NP, Dh=128):
-    live = [-(-n // page) for n in n_list]
-    k_pages, v_pages, table = _pool_and_table(torch, gen, B, KV, Dh, page,
-                                              NP, live)
+def decode_inputs(torch, gen, layout, quant, B, H, KV, n_list, Dh=128,
+                  page=256, NP=16, S=4096):
+    """(wrapper args, dense K, dense V, live extent) of one decode case:
+    q, k_new, v_new, the cache (a page pool and its table, or a contiguous
+    layer), n_stale."""
+    if layout == "paged":
+        live = [-(-n // page) for n in n_list]
+        k, v, table = _pool_and_table(torch, gen, B, KV, Dh, page, NP, live,
+                                      quant)
+        cache = (k, v, table)
+    else:
+        cache = (_cache(torch, gen, B, KV, S, Dh, quant),
+                 _cache(torch, gen, B, KV, S, Dh, quant))
     q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(torch.bfloat16)
     k_new = torch.randn((B, KV, Dh), generator=gen, device="cuda").to(torch.bfloat16)
     v_new = torch.randn((B, KV, Dh), generator=gen, device="cuda").to(torch.bfloat16)
     n_stale = torch.tensor(n_list, dtype=torch.int32, device="cuda")
-    return (q, k_new, v_new, k_pages, v_pages, table, n_stale)
+    return (q, k_new, v_new, *cache, n_stale)
 
 
-def prefill_inputs(torch, gen, T, H, KV, starts, page, NP, Dh=128):
-    live = [-(-(s + T) // page) for s in starts]
-    k_pages, v_pages, table = _pool_and_table(torch, gen, len(starts), KV,
-                                              Dh, page, NP, live)
-    q = torch.randn((len(starts), T, H, Dh), generator=gen, device="cuda"
+def prefill_inputs(torch, gen, layout, quant, T, H, KV, starts, Dh=128,
+                   page=256, NP=16, S=4096):
+    B = len(starts)
+    if layout == "paged":
+        live = [-(-(s + T) // page) for s in starts]
+        k, v, table = _pool_and_table(torch, gen, B, KV, Dh, page, NP, live,
+                                      quant)
+        cache = (k, v, table)
+    else:
+        cache = (_cache(torch, gen, B, KV, S, Dh, quant),
+                 _cache(torch, gen, B, KV, S, Dh, quant))
+    q = torch.randn((B, T, H, Dh), generator=gen, device="cuda"
                     ).to(torch.bfloat16)
     start = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    return (q, k_pages, v_pages, table, start)
+    return (q, *cache, start)
 
 
-def check_decode(torch, pa, gen) -> dict:
+class Kernels:
+    """The four wrappers and their plain versions, by (kind, layout)."""
+
+    def __init__(self, pa, fa):
+        self.pa, self.fa = pa, fa
+        self.fn = {("decode", "paged"): pa.paged_decode_attention,
+                   ("prefill", "paged"): pa.paged_prefill_attention,
+                   ("decode", "contiguous"): fa.flash_decode_attention,
+                   ("prefill", "contiguous"): fa.flash_prefill_attention}
+        self.plain = {("decode", "paged"): pa._paged_decode_plain,
+                      ("prefill", "paged"): pa._paged_prefill_plain,
+                      ("decode", "contiguous"): fa._flash_decode_plain,
+                      ("prefill", "contiguous"): fa._flash_prefill_plain}
+
+    def name(self, kind, layout):
+        return self.fn[(kind, layout)].__name__
+
+    def all_wrappers(self):
+        return list(self.fn.values())
+
+
+def _dense_view(ks, layout, side, table, S):
+    """The bf16 dense [B, KV, S, Dh] view of one cache side (SDPA input)."""
+    if layout == "paged":
+        return ks.pa.gather_pages(side, table, S)
+    return side[:, :, :S]
+
+
+def check_decode(torch, ks, gen, layout, quant) -> dict:
     d = DECODE
-    B, H, KV, Dh, page, NP = (d[k] for k in ("B", "H", "KV", "Dh", "page",
-                                              "NP"))
+    B, H, KV, Dh = d["B"], d["H"], d["KV"], d["Dh"]
     n_list = d["n_stale"]
-    args = decode_inputs(torch, gen, B, H, KV, n_list, page, NP, Dh)
-    q, k_new, v_new, k_pages, v_pages, table, n_stale = args
+    args = decode_inputs(torch, gen, layout, quant, B, H, KV, n_list, Dh,
+                         d["page"], d["NP"], d["S"])
+    q, k_new, v_new = args[:3]
+    n_stale = args[-1]
+    fn, plain = ks.fn[("decode", layout)], ks.plain[("decode", layout)]
+    name = f"{fn.__name__}{'_int8' if quant else ''}"
 
-    got = pa.paged_decode_attention(*args)
+    got = fn(*args)
     torch.cuda.synchronize()
-    err = held(torch, "decode kernel", got,
-               pa._paged_decode_plain(*_fp32(args)))
-
-    kernel_ms = cuda_ms(torch, lambda: pa.paged_decode_attention(*args))
-    plain_ms = cuda_ms(torch, lambda: pa._paged_decode_plain(*args), iters=5)
-    # Library yardstick: SDPA over the gathered stale view + self column.
-    S = max(-(-n // page) for n in n_list) * page
-    dk = pa.gather_pages(k_pages, table, S)
-    dv = pa.gather_pages(v_pages, table, S)
-    k_all = torch.cat([dk, k_new[:, :, None]], dim=2)
-    v_all = torch.cat([dv, v_new[:, :, None]], dim=2)
-    pos = torch.arange(S + 1, device="cuda")
-    mask = ((pos[None, :] < n_stale[:, None]) | (pos[None, :] == S))[
-        :, None, None, :]
-    library_ms = cuda_ms(torch, lambda: sdpa(torch, q[:, :, None], k_all,
-                                             v_all, mask))
+    err = held(torch, name, got, plain(*_fp32(args)))
+    kernel_ms = cuda_ms(torch, lambda: fn(*args))
+    plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
+    library_ms = None
+    if not quant:
+        # Library yardstick: SDPA over the dense stale view + self column.
+        S = (max(-(-n // d["page"]) for n in n_list) * d["page"]
+             if layout == "paged" else max(n_list))
+        table = args[5] if layout == "paged" else None
+        dk = _dense_view(ks, layout, args[3], table, S)
+        dv = _dense_view(ks, layout, args[4], table, S)
+        k_all = torch.cat([dk, k_new[:, :, None]], dim=2)
+        v_all = torch.cat([dv, v_new[:, :, None]], dim=2)
+        pos = torch.arange(S + 1, device="cuda")
+        mask = ((pos[None, :] < n_stale[:, None]) | (pos[None, :] == S))[
+            :, None, None, :]
+        library_ms = cuda_ms(torch, lambda: sdpa(torch, q[:, :, None], k_all,
+                                                 v_all, mask))
     tokens = sum(n_list)
+    index_bytes = sum(a.nbytes for a in args[5:] if hasattr(a, "nbytes"))
     n_bytes = (q.nbytes + k_new.nbytes + v_new.nbytes + got.nbytes
-               + table.nbytes + n_stale.nbytes + tokens * KV * Dh * 2 * 2)
+               + index_bytes + tokens * kv_bytes_per_key(quant, KV, Dh))
     n_flops = B * H * (tokens / B + 1) * Dh * 4
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"phase": "kernel", "name": "paged_decode_attention",
-           "shape": {"B": B, "H": H, "KV": KV, "Dh": Dh, "page": page,
-                     "NP": NP, "n_stale": n_list},
+    res = {"phase": "kernel", "name": name, "layout": layout,
+           "kv": "int8" if quant else "bf16",
+           "shape": {"B": B, "H": H, "KV": KV, "Dh": Dh,
+                     **({"page": d["page"], "NP": d["NP"]}
+                        if layout == "paged" else {"S": d["S"]}),
+                     "n_stale": n_list},
            **err, "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
+           **({"library_none": LIBRARY_NONE} if quant else {}),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "live_kv_bytes": tokens * KV * Dh * 4}
+           "live_kv_bytes": tokens * kv_bytes_per_key(quant, KV, Dh)}
     emit(res)
-    check(err["max_err_over_tol"] <= 1.0, f"decode kernel disagrees: {err}")
+    check(err["max_err_over_tol"] <= 1.0, f"{name} disagrees: {err}")
     return res
 
 
-def check_prefill(torch, pa, gen, T: int) -> dict:
+def check_prefill(torch, ks, gen, layout, quant, T: int) -> dict:
     d = PREFILL
-    H, KV, Dh, page, NP = (d[k] for k in ("H", "KV", "Dh", "page", "NP"))
+    H, KV, Dh = d["H"], d["KV"], d["Dh"]
     starts = d["starts"]
     B = len(starts)
-    args = prefill_inputs(torch, gen, T, H, KV, starts, page, NP, Dh)
-    q, k_pages, v_pages, table, start = args
+    args = prefill_inputs(torch, gen, layout, quant, T, H, KV, starts, Dh,
+                          d["page"], d["NP"], d["S"])
+    q, start = args[0], args[-1]
+    fn, plain = ks.fn[("prefill", layout)], ks.plain[("prefill", layout)]
+    name = f"{fn.__name__}{'_int8' if quant else ''}"
 
-    got = pa.paged_prefill_attention(*args)
+    got = fn(*args)
     torch.cuda.synchronize()
-    err = held(torch, "prefill kernel", got,
-               pa._paged_prefill_plain(*_fp32(args)))
-
-    kernel_ms = cuda_ms(torch, lambda: pa.paged_prefill_attention(*args))
-    plain_ms = cuda_ms(torch, lambda: pa._paged_prefill_plain(*args), iters=5)
-    S = max(starts) + T
-    dk = pa.gather_pages(k_pages, table, S)
-    dv = pa.gather_pages(v_pages, table, S)
-    q_pos = start[:, None] + torch.arange(T, device="cuda")[None, :]
-    mask = (torch.arange(S, device="cuda")[None, None, :]
-            <= q_pos[:, :, None])[:, None]
-    qh = q.transpose(1, 2)
-    library_ms = cuda_ms(torch, lambda: sdpa(torch, qh, dk, dv, mask))
+    err = held(torch, f"{name} T={T}", got, plain(*_fp32(args)))
+    kernel_ms = cuda_ms(torch, lambda: fn(*args))
+    plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
+    library_ms = None
+    if not quant:
+        S = max(starts) + T
+        table = args[3] if layout == "paged" else None
+        dk = _dense_view(ks, layout, args[1], table, S)
+        dv = _dense_view(ks, layout, args[2], table, S)
+        q_pos = start[:, None] + torch.arange(T, device="cuda")[None, :]
+        mask = (torch.arange(S, device="cuda")[None, None, :]
+                <= q_pos[:, :, None])[:, None]
+        qh = q.transpose(1, 2)
+        library_ms = cuda_ms(torch, lambda: sdpa(torch, qh, dk, dv, mask))
     keys = sum(s + T for s in starts)
-    n_bytes = (q.nbytes + got.nbytes + table.nbytes + start.nbytes
-               + keys * KV * Dh * 2 * 2)
+    index_bytes = sum(a.nbytes for a in args[3:] if hasattr(a, "nbytes"))
+    n_bytes = (q.nbytes + got.nbytes + index_bytes
+               + keys * kv_bytes_per_key(quant, KV, Dh))
     # Each query t of slot b sees start_b + t + 1 keys: QK and PV, 2 flops
     # per multiply-add, per head.
     n_flops = sum(H * Dh * 4 * (T * (s + 1) + T * (T - 1) / 2)
                   for s in starts)
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"phase": "kernel", "name": "paged_prefill_attention",
+    res = {"phase": "kernel", "name": name, "layout": layout,
+           "kv": "int8" if quant else "bf16",
            "shape": {"B": B, "T": T, "H": H, "KV": KV, "Dh": Dh,
-                     "page": page, "NP": NP, "start": starts},
+                     **({"page": d["page"], "NP": d["NP"]}
+                        if layout == "paged" else {"S": d["S"]}),
+                     "start": starts},
            **err, "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
+           **({"library_none": LIBRARY_NONE} if quant else {}),
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit(res)
-    check(err["max_err_over_tol"] <= 1.0,
-          f"prefill kernel (T={T}) disagrees: {err}")
+    check(err["max_err_over_tol"] <= 1.0, f"{name} (T={T}) disagrees: {err}")
     return res
 
 
-def check_groups(torch, pa, group_sizes, gen) -> list[dict]:
+def check_groups(torch, ks, group_sizes, gen) -> list[dict]:
     """Every group size the kernels are built for (H 32 over H/G KV heads),
-    decode and prefill, held to the plain versions. Not timed."""
+    every kernel body (paged and contiguous, bf16 and int8, decode and
+    prefill), held to the plain versions. Not timed."""
     c = GROUP_CASES
-    H, page, NP = c["H"], 256, 16
+    H = c["H"]
     rows = []
     for G in group_sizes:
         KV = H // G
-        dargs = decode_inputs(torch, gen, c["B"], H, KV, c["n_stale"], page,
-                              NP)
-        pargs = prefill_inputs(torch, gen, c["T"], H, KV, c["starts"], page,
-                               NP)
-        rows.append({
-            "G": G, "KV": KV,
-            "decode": held(torch, f"decode kernel G={G}",
-                           pa.paged_decode_attention(*dargs),
-                           pa._paged_decode_plain(*_fp32(dargs))),
-            "prefill": held(torch, f"prefill kernel G={G}",
-                            pa.paged_prefill_attention(*pargs),
-                            pa._paged_prefill_plain(*_fp32(pargs)))})
+        for layout in ("paged", "contiguous"):
+            for quant in (False, True):
+                dargs = decode_inputs(torch, gen, layout, quant, c["B"], H,
+                                      KV, c["n_stale"])
+                pargs = prefill_inputs(torch, gen, layout, quant, c["T"], H,
+                                       KV, c["starts"])
+                tag = f"{layout} {'int8' if quant else 'bf16'} G={G}"
+                rows.append({
+                    "G": G, "KV": KV, "layout": layout,
+                    "kv": "int8" if quant else "bf16",
+                    "decode": held(torch, f"decode {tag}",
+                                   ks.fn[("decode", layout)](*dargs),
+                                   ks.plain[("decode", layout)](
+                                       *_fp32(dargs))),
+                    "prefill": held(torch, f"prefill {tag}",
+                                    ks.fn[("prefill", layout)](*pargs),
+                                    ks.plain[("prefill", layout)](
+                                        *_fp32(pargs)))})
     emit({"phase": "groups", "shape": c, "rtol": KERNEL_RTOL,
           "atol": KERNEL_ATOL, "groups": rows})
     for r in rows:
         for k in ("decode", "prefill"):
             check(r[k]["max_err_over_tol"] <= 1.0,
-                  f"{k} kernel disagrees at G={r['G']}: {r[k]}")
+                  f"{k} kernel disagrees at {r['layout']} {r['kv']} "
+                  f"G={r['G']}: {r[k]}")
     return rows
+
+
+def kernel_phase(torch, ks, gen) -> dict:
+    """Phase 3: every kernel body at the main path's shapes, then every
+    group size. Returns {(kind, layout, quant): [results]}."""
+    out = {}
+    for layout in ("paged", "contiguous"):
+        for quant in (False, True):
+            out[("decode", layout, quant)] = [
+                check_decode(torch, ks, gen, layout, quant)]
+            out[("prefill", layout, quant)] = [
+                check_prefill(torch, ks, gen, layout, quant, T)
+                for T in PREFILL["T"]]
+    from llmapigateway_tpu_torch.ops import _kernels
+    check_groups(torch, ks, _kernels.GROUP_SIZES, gen)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +467,10 @@ def check_groups(torch, pa, group_sizes, gen) -> list[dict]:
 
 def check_model(torch) -> dict:
     from llmapigateway_tpu_torch.models.config import ModelConfig
-    from llmapigateway_tpu_torch.models.llama import forward, init_params
+    from llmapigateway_tpu_torch.models.llama import (KVCache, forward,
+                                                      init_params)
+    from llmapigateway_tpu_torch.ops.flash_attention import (
+        make_cache_attention_fn)
     from llmapigateway_tpu_torch.ops.paged_attention import (
         PagedKVCache, make_paged_attention_fn)
 
@@ -337,18 +479,24 @@ def check_model(torch) -> dict:
                       max_seq_len=1024)                 # Dh 128, G 4
     gen = torch.Generator(device="cpu").manual_seed(1)
     params_cpu = init_params(cfg, gen, dtype=torch.bfloat16)
-    page, NP, B, P = 256, 4, 2, 9
+    page, B, P = 256, 2, 9
     table = torch.tensor([[3, 7, 0, 0], [5, 2, 8, 0]], dtype=torch.int32)
     prompt = torch.randint(0, 512, (B, 300), generator=gen)
     # Fixed decode inputs: both runs must see the same tokens.
     steps = torch.randint(0, 512, (4, B), generator=gen)
 
-    def run(device, dtype):
+    def run(device, dtype, layout, kv_quant):
         params = {k: ({n: w.to(device, dtype) for n, w in v.items()}
                       if isinstance(v, dict) else v.to(device, dtype))
                   for k, v in params_cpu.items()}
-        cache = PagedKVCache.create(cfg, P, page, dtype, device=device)
-        attn = make_paged_attention_fn(table.to(device))
+        if layout == "paged":
+            cache = PagedKVCache.create(cfg, P, page, dtype, kv_quant,
+                                        device=device)
+            attn = make_paged_attention_fn(table.to(device))
+        else:
+            cache = KVCache.create(cfg, B, 1024, dtype, kv_quant,
+                                   device=device)
+            attn = make_cache_attention_fn()
         lengths = torch.zeros(B, dtype=torch.int32, device=device)
         logits, cache = forward(params, cfg, prompt.to(device), lengths,
                                 cache, attention_fn=attn)
@@ -362,19 +510,26 @@ def check_model(torch) -> dict:
             lengths = lengths + 1
         return torch.stack(outs).float().cpu()
 
+    rels = {}
     with torch.no_grad():
-        got = run("cuda", torch.bfloat16)
-        ref = run("cpu", torch.float32)
-    check(bool(torch.isfinite(got).all()), "model: non-finite logits")
-    check(got.shape == ref.shape == (5, B, cfg.vocab_size),
-          f"model: logits shape {tuple(got.shape)}")
-    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        for layout in ("paged", "contiguous"):
+            for kv_quant in ("", "int8"):
+                got = run("cuda", torch.bfloat16, layout, kv_quant)
+                ref = run("cpu", torch.float32, layout, kv_quant)
+                tag = f"{layout}-{kv_quant or 'bf16'}"
+                check(bool(torch.isfinite(got).all()),
+                      f"model {tag}: non-finite logits")
+                check(got.shape == ref.shape == (5, B, cfg.vocab_size),
+                      f"model {tag}: logits shape {tuple(got.shape)}")
+                rels[tag] = ((got - ref).abs().max()
+                             / ref.abs().max()).item()
     head = check_head(torch)
     res = {"phase": "model", "layers": cfg.n_layers, "prompt": 300,
-           "decode_steps": 4, "max_rel_err": rel, "tol": MODEL_REL_TOL,
+           "decode_steps": 4, "max_rel_err": rels, "tol": MODEL_REL_TOL,
            "head": head}
     emit(res)
-    check(rel <= MODEL_REL_TOL, f"model logits disagree: {rel}")
+    for tag, rel in rels.items():
+        check(rel <= MODEL_REL_TOL, f"model logits disagree ({tag}): {rel}")
     check(head["dtype"] == "torch.float32"
           and head["max_rel_err"] <= HEAD_REL_TOL,
           f"LM head logits are not an fp32 product: {head}")
@@ -402,7 +557,7 @@ def check_head(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: serve /v1/chat/completions at llama-3-8b width
+# Phase 5: serve /v1/chat/completions at llama-3-8b width, per configuration
 # ---------------------------------------------------------------------------
 
 def _free_port() -> int:
@@ -411,7 +566,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-async def _serve(torch, pa, card: str) -> dict:
+async def _serve(torch, ks, card: str, tag: str, overrides: dict) -> dict:
     import aiohttp
     from aiohttp import web
 
@@ -421,9 +576,11 @@ async def _serve(torch, pa, card: str) -> dict:
     from llmapigateway_tpu_torch.server.app import build_app
     from llmapigateway_tpu_torch.utils.sse import SSEParser
 
+    engine_cfg = {**SERVE_BASE, **overrides}
+    layout = engine_cfg["kv_layout"]
     with tempfile.TemporaryDirectory() as cfg_dir:
         with open(os.path.join(cfg_dir, "providers.json"), "w") as f:
-            json.dump([{"local": {"type": "local", "engine": SERVE_ENGINE}}], f)
+            json.dump([{"local": {"type": "local", "engine": engine_cfg}}], f)
         with open(os.path.join(cfg_dir, "models_fallback_rules.json"), "w") as f:
             json.dump([{"gateway_model_name": "gw/llama",
                         "fallback_models": [{"provider": "local",
@@ -440,11 +597,14 @@ async def _serve(torch, pa, card: str) -> dict:
         try:
             t0 = time.monotonic()
             provider = await app["gateway"].registry.get("local")
-            check(provider is not None, "serve: the local provider did not build")
+            check(provider is not None,
+                  f"serve {tag}: the local provider did not build")
             engine = provider.engine
             torch.cuda.synchronize()
             build_s = time.monotonic() - t0
             n_layers = engine.model_cfg.n_layers
+            cache_kind = (f"{type(engine.cache).__name__}"
+                          f"{'[int8]' if isinstance(engine.cache.k, dict) else ''}")
 
             words = ("the quick brown fox jumps over the lazy dog while "
                      "paged attention streams every live key once ")
@@ -453,33 +613,42 @@ async def _serve(torch, pa, card: str) -> dict:
 
             async def one(session, text, stream):
                 body = {"model": "gw/llama", "temperature": 0,
-                        "max_tokens": 32, "stream": stream,
+                        "max_tokens": SERVE_MAX_TOKENS, "stream": stream,
                         "messages": [{"role": "user", "content": text}]}
                 async with session.post(
                         f"http://127.0.0.1:{port}/v1/chat/completions",
                         json=body) as resp:
                     if resp.status != 200:
                         raise SmokeFailure(
-                            f"serve: HTTP {resp.status}: {await resp.text()}")
+                            f"serve {tag}: HTTP {resp.status}: "
+                            f"{await resp.text()}")
                     if not stream:
-                        return await resp.json()
+                        out = await resp.json()
+                        return {"usage": out["usage"],
+                                "text": out["choices"][0]["message"]["content"],
+                                "finish": out["choices"][0]["finish_reason"]}
                     parser, frames = SSEParser(), []
                     async for chunk in resp.content.iter_any():
                         frames.extend(parser.feed(chunk))
                     check(bool(frames) and frames[-1].is_done,
-                          f"serve: SSE stream did not end in [DONE]: "
+                          f"serve {tag}: SSE stream did not end in [DONE]: "
                           f"{[fr.data[:200] for fr in frames[-2:]]}")
                     usage = [fr.json["usage"] for fr in frames
                              if fr.json and "usage" in fr.json]
-                    text = "".join(
-                        fr.json["choices"][0]["delta"].get("content", "")
-                        for fr in frames if fr.json and fr.json.get("choices"))
-                    check(len(usage) == 1, "serve: SSE usage frame missing")
-                    return {"usage": usage[0], "text": text}
+                    choices = [fr.json["choices"][0] for fr in frames
+                               if fr.json and fr.json.get("choices")]
+                    text = "".join(c["delta"].get("content") or ""
+                                   for c in choices)
+                    finish = [c["finish_reason"] for c in choices
+                              if c.get("finish_reason")]
+                    check(len(usage) == 1,
+                          f"serve {tag}: SSE usage frame missing")
+                    return {"usage": usage[0], "text": text,
+                            "finish": finish[-1] if finish else None}
 
             # Zero every launch count just before driving the main path.
-            pa.paged_decode_attention.launches = 0
-            pa.paged_prefill_attention.launches = 0
+            for fn in ks.all_wrappers():
+                fn.launches = 0
             engine.decode_steps = engine.prefill_calls = 0
             engine.prefill_one_token_calls = 0
             t1 = time.monotonic()
@@ -488,47 +657,120 @@ async def _serve(torch, pa, card: str) -> dict:
                     one(session, p, s) for p, s in zip(prompts, streams)])
             torch.cuda.synchronize()
             wall_s = time.monotonic() - t1
-            launches = {"paged_decode_attention":
-                        pa.paged_decode_attention.launches,
-                        "paged_prefill_attention":
-                        pa.paged_prefill_attention.launches}
+            launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
             steps = {"decode_steps": engine.decode_steps,
                      "prefill_calls": engine.prefill_calls,
                      "prefill_one_token_calls":
                      engine.prefill_one_token_calls}
         finally:
             await runner.cleanup()
+    del provider, engine, app, runner, site
 
     usages = [r["usage"] for r in results]
-    for u in usages:
-        check(u["completion_tokens"] > 0, f"serve: no completion tokens {u}")
-    check(launches["paged_decode_attention"] > 0,
-          "serve: the decode kernel never ran on the main path")
-    check(launches["paged_prefill_attention"] > 0,
-          "serve: the prefill kernel never ran on the main path")
+    for r in results:
+        u = r["usage"]
+        # Greedy on random weights: every request runs to max_tokens unless
+        # it samples an end-of-sequence token.
+        check(u["completion_tokens"] > 0
+              and (u["completion_tokens"] == SERVE_MAX_TOKENS
+                   or r["finish"] == "stop"),
+              f"serve {tag}: unexpected completion {u} ({r['finish']})")
+    decode_k = ks.name("decode", layout)
+    prefill_k = ks.name("prefill", layout)
+    other = "contiguous" if layout == "paged" else "paged"
+    check(launches[decode_k] > 0,
+          f"serve {tag}: the decode kernel never ran on the main path")
+    check(launches[prefill_k] > 0,
+          f"serve {tag}: the prefill kernel never ran on the main path")
     # A prefill call one token wide runs the decode kernel (the forward's
     # T == 1 path); every other prefill call runs the prefill kernel.
-    one = steps["prefill_one_token_calls"]
-    check(launches["paged_decode_attention"]
-          == n_layers * (steps["decode_steps"] + one),
-          f"serve: decode launches {launches} != {n_layers} x {steps}")
-    check(launches["paged_prefill_attention"]
-          == n_layers * (steps["prefill_calls"] - one),
-          f"serve: prefill launches {launches} != {n_layers} x {steps}")
-    res = {"phase": "serve", "card": card, "engine": SERVE_ENGINE,
+    one_tok = steps["prefill_one_token_calls"]
+    check(launches[decode_k] == n_layers * (steps["decode_steps"] + one_tok),
+          f"serve {tag}: decode launches {launches} != {n_layers} x {steps}")
+    check(launches[prefill_k]
+          == n_layers * (steps["prefill_calls"] - one_tok),
+          f"serve {tag}: prefill launches {launches} != {n_layers} x {steps}")
+    for kind in ("decode", "prefill"):
+        name = ks.name(kind, other)
+        check(launches[name] == 0,
+              f"serve {tag}: the {other} layout's kernel {name} ran "
+              f"{launches[name]} times")
+    res = {"phase": "serve", "config": tag, "card": card,
+           "engine": engine_cfg, "layers": n_layers, "cache": cache_kind,
            "requests": len(results), "sse": sum(streams),
            "prompt_tokens": [u["prompt_tokens"] for u in usages],
            "completion_tokens": [u["completion_tokens"] for u in usages],
+           "finish": [r["finish"] for r in results],
            "ttft_ms": [u.get("ttft_ms") for u in usages],
            "decode_tok_per_s": [u.get("tokens_per_sec") for u in usages],
            "engine_build_s": build_s, "wall_s": wall_s,
            "launches": launches, **steps,
            "note": "TTFT and tok/s are information only"}
     emit(res)
+    res["texts"] = [r["text"] for r in results]
     return res
 
 
+def serve_phase(torch, ks, card: str) -> dict:
+    """Phase 5: each served configuration in turn; the card holds one
+    engine at a time."""
+    out = {}
+    for tag, overrides in SERVE_CONFIGS:
+        out[tag] = asyncio.run(_serve(torch, ks, card, tag, overrides))
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "serve-freed", "config": tag,
+              "allocated_bytes": torch.cuda.memory_allocated()})
+    # Information: the two layouts read the same values in the same order,
+    # so a cache type's two layouts may well agree token for token; batch
+    # composition can change cuBLAS's choices, so this is not a check.
+    emit({"phase": "serve-agreement",
+          "bf16_layouts_same_text": out["contiguous-bf16"]["texts"]
+          == out["paged-bf16"]["texts"],
+          "int8_layouts_same_text": out["contiguous-int8"]["texts"]
+          == out["paged-int8"]["texts"]})
+    return out
+
+
 # ---------------------------------------------------------------------------
+
+ROWS = [  # (kind, layout, int8, serve config, source, replaces)
+    ("decode", "paged", False, "paged-bf16", "paged_attention.cu",
+     "llmapigateway_tpu/ops/paged_attention.py:272"),
+    ("prefill", "paged", False, "paged-bf16", "paged_attention.cu",
+     "llmapigateway_tpu/ops/paged_attention.py:438"),
+    ("decode", "contiguous", False, "contiguous-bf16", "flash_attention.cu",
+     "llmapigateway_tpu/ops/flash_attention.py:186"),
+    ("prefill", "contiguous", False, "contiguous-bf16", "flash_attention.cu",
+     "llmapigateway_tpu/ops/flash_attention.py:329"),
+    ("decode", "paged", True, "paged-int8", "paged_attention.cu",
+     "llmapigateway_tpu/ops/paged_attention.py:272"),
+    ("prefill", "paged", True, "paged-int8", "paged_attention.cu",
+     "llmapigateway_tpu/ops/paged_attention.py:438"),
+    ("decode", "contiguous", True, "contiguous-int8", "flash_attention.cu",
+     "llmapigateway_tpu/ops/flash_attention.py:186"),
+    ("prefill", "contiguous", True, "contiguous-int8", "flash_attention.cu",
+     "llmapigateway_tpu/ops/flash_attention.py:329"),
+]
+
+
+def kernels_line(ks, kernel_res: dict, serve: dict) -> dict:
+    rows = []
+    for kind, layout, quant, cfg, source, replaces in ROWS:
+        res = kernel_res[(kind, layout, quant)]
+        name = ks.name(kind, layout)
+        rows.append({"name": f"{name}{'_int8' if quant else ''}",
+                     "route": "cuda",
+                     "source": f"llmapigateway_tpu_torch/csrc/{source}",
+                     "replaces": replaces,
+                     "launches": serve[cfg]["launches"][name],
+                     "max_abs_err": max(r["max_abs_err"] for r in res),
+                     "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"],
+                     "bound_ms": res[0]["bound_ms"],
+                     "bound_by": res[0]["bound_by"],
+                     "library_ms": res[0]["library_ms"]})
+    return {"kernels": rows}
+
 
 def main() -> int:
     try:
@@ -543,6 +785,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from llmapigateway_tpu_torch.ops import _kernels
+        from llmapigateway_tpu_torch.ops import flash_attention as fa
         from llmapigateway_tpu_torch.ops import paged_attention as pa
     except ImportError as e:
         print(f"chip_smoke: the llmapigateway_tpu_torch package is not "
@@ -550,6 +793,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ks = Kernels(pa, fa)
 
     try:
         smi = nvidia_smi_line()
@@ -558,40 +802,28 @@ def main() -> int:
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda})
 
-        build = _kernels.build()
-        _kernels.library()
-        emit({"phase": "build", "library": os.path.relpath(build.path, HERE),
-              "seconds": build.seconds, "arch": "sm_90a",
-              "ptxas": [ln.strip() for ln in build.log.splitlines()
-                        if "Compiling entry" in ln or "registers" in ln
-                        or "spill" in ln]})
+        t0 = time.monotonic()
+        builds = _kernels.build()
+        for name in _kernels.SOURCES:
+            _kernels.library(name)
+        emit({"phase": "build", "arch": "sm_90a",
+              "wall_s": time.monotonic() - t0,
+              "sources": {name: {
+                  "library": os.path.relpath(b.path, HERE),
+                  "seconds": b.seconds,
+                  "ptxas": [ln.strip() for ln in b.log.splitlines()
+                            if "Compiling entry" in ln or "registers" in ln
+                            or "spill" in ln]} for name, b in builds.items()}})
 
         gen = torch.Generator(device="cuda").manual_seed(0)
-        decode = check_decode(torch, pa, gen)
-        prefill = [check_prefill(torch, pa, gen, T) for T in PREFILL["T"]]
-        check_groups(torch, pa, _kernels.GROUP_SIZES, gen)
+        kernel_res = kernel_phase(torch, ks, gen)
         check_model(torch)
-        serve = asyncio.run(_serve(torch, pa, smi))
+        serve = serve_phase(torch, ks, smi)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    def row(name, res, errs, replaces):
-        return {"name": name, "route": "cuda",
-                "source": "llmapigateway_tpu_torch/csrc/paged_attention.cu",
-                "replaces": replaces,
-                "launches": serve["launches"][name],
-                "max_abs_err": max(errs), "ms": res["ms"],
-                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"],
-                "library_ms": res["library_ms"]}
-
-    emit({"kernels": [
-        row("paged_decode_attention", decode, [decode["max_abs_err"]],
-            "llmapigateway_tpu/ops/paged_attention.py:272"),
-        row("paged_prefill_attention", prefill[0],
-            [p["max_abs_err"] for p in prefill],
-            "llmapigateway_tpu/ops/paged_attention.py:438")]})
+    emit(kernels_line(ks, kernel_res, serve))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

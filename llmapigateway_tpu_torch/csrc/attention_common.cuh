@@ -1,14 +1,28 @@
-// Shared online-softmax block math of the paged attention kernels.
+// Shared online-softmax block math of the four attention kernels.
 //
 // The CUDA twin of the JAX package's single-copy block update
 // (llmapigateway_tpu/ops/flash_attention.py: self_column_init :60,
 // attend_block :79) and of the port's plain helpers
-// (llmapigateway_tpu_torch/ops/flash_attention.py). Both kernels in
-// paged_attention.cu are built from these functions: a thread block owns R
-// query rows (decode: the G query heads of one KV head; prefill: a tile of
-// query positions of one head), keeps their fp32 state m/l in shared memory
-// and acc in registers, and walks the keys in shared-memory tiles of
-// TILE_K tokens read from the page pool through the slot's page table.
+// (llmapigateway_tpu_torch/ops/flash_attention.py). The kernels in
+// paged_attention.cu and flash_attention.cu are built from the two bodies
+// here, decode_body and prefill_body: a thread block owns R query rows
+// (decode: the G query heads of one KV head; prefill: a tile of query
+// positions of one head), keeps their fp32 state m/l in shared memory and
+// acc in registers, and walks the keys in shared-memory tiles of TILE_K
+// tokens.
+//
+// The four kernels differ only in two template parameters of the bodies:
+// * how a key's row is found (Rows): PagedRows through the slot's
+//   page-table row, DenseRows by a row stride in the contiguous cache. A
+//   key's scale sits at the same row index in both layouts (scales are
+//   stored [.., KV, 1, N] beside values [.., KV, N, Dh]).
+// * the KV element type (KVT): Bf16KV, or Int8KV with a per-key fp32 scale.
+//   Int8 values are widened to bf16 in shared memory, which is exact (|q| <=
+//   127 needs 7 bits; bf16 keeps 8), so the score and PV loops are the same
+//   code; the int8 body multiplies each score by its key's scale after the
+//   Dh^-1/2 factor and before the mask, accumulates l from the UNSCALED
+//   probabilities, and multiplies each probability by its value's scale in
+//   the PV product.
 //
 // Shared-memory rows hold HEAD_DIM bf16 values as PAIRS 32-bit words padded
 // to ROW_WORDS words, so a warp reading one column across 32 rows hits 32
@@ -19,15 +33,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pa {
 
 constexpr int HEAD_DIM = 128;
 constexpr int PAIRS = HEAD_DIM / 2;          // bf16x2 words per row
 constexpr int ROW_WORDS = PAIRS + 1;         // padded shared-memory row
-constexpr int CHUNKS = HEAD_DIM / 8;         // 16-byte chunks per row
 constexpr int TILE_K = 32;                   // keys per shared-memory tile
+constexpr int TILE_Q = 64;                   // query rows per prefill block
 constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;            // finite, as in the Pallas kernels
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
     return __uint_as_float(w << 16);
@@ -36,54 +54,105 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
     return __uint_as_float(w & 0xffff0000u);
 }
 
-// One 16-byte chunk of a row into its padded shared-memory slot.
-__device__ __forceinline__ void store_chunk(uint32_t* row, int c, uint4 v) {
-    row[c * 4 + 0] = v.x;
-    row[c * 4 + 1] = v.y;
-    row[c * 4 + 2] = v.z;
-    row[c * 4 + 3] = v.w;
-}
+// --------------------------------------------------------------------------
+// KV element types
+// --------------------------------------------------------------------------
 
-// Load `n_rows` rows of HEAD_DIM bf16 (row r at src + r * stride elements,
-// 16-byte aligned) into padded shared memory; rows >= n_valid are zeroed.
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* src,
-                                          long long stride, int n_valid,
-                                          int n_rows, uint32_t* dst) {
-    for (int i = threadIdx.x; i < n_rows * CHUNKS; i += NTHREADS) {
-        const int r = i / CHUNKS, c = i % CHUNKS;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n_valid)
-            v = __ldg(reinterpret_cast<const uint4*>(src + r * stride) + c);
-        store_chunk(dst + r * ROW_WORDS, c, v);
+struct Bf16KV {
+    using elem = bf16;
+    static constexpr bool kQuant = false;
+    static constexpr int CHUNKS = HEAD_DIM / 8;   // 16-byte loads per row
+
+    // Chunk c (values 8c .. 8c+7) of key row `row` into its padded slot.
+    __device__ static void load(const elem* base, long long row, int c,
+                                uint32_t* dst) {
+        const uint4 v =
+            __ldg(reinterpret_cast<const uint4*>(base + row * HEAD_DIM) + c);
+        dst[c * 4 + 0] = v.x;
+        dst[c * 4 + 1] = v.y;
+        dst[c * 4 + 2] = v.z;
+        dst[c * 4 + 3] = v.w;
     }
+    __device__ static void zero(int c, uint32_t* dst) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dst[c * 4 + i] = 0u;
+    }
+};
+
+// Signed byte `k` of w, as the bits of its (exact) bf16 value.
+__device__ __forceinline__ uint32_t i8_as_bf16(uint32_t w, int k) {
+    const int v = static_cast<int>(w << (24 - 8 * k)) >> 24;
+    return __float_as_uint(static_cast<float>(v)) >> 16;
+}
+__device__ __forceinline__ uint32_t i8x2_as_bf16x2(uint32_t w, int k) {
+    return i8_as_bf16(w, k) | (i8_as_bf16(w, k + 1) << 16);
 }
 
-// Load the K and V tile of keys [pos0, pos0 + TILE_K) of one KV head from
-// the page pool [P, KV, page, HEAD_DIM]. The block reads its own page-table
-// row (there is no scalar prefetch on the GPU). Keys at or past `limit`, and
-// keys whose logical page is past the table, are zeroed and never read from
-// the pool — an unallocated table entry (0, the trash page) is never
-// dereferenced for a live position.
-__device__ __forceinline__ void load_kv_tile(
-        const __nv_bfloat16* k_pages, const __nv_bfloat16* v_pages,
-        const int* table_row, int NP, int page, int KV, int kv, int pos0,
-        int limit, uint32_t* k_s, uint32_t* v_s) {
-    for (int i = threadIdx.x; i < TILE_K * CHUNKS; i += NTHREADS) {
-        const int r = i / CHUNKS, c = i % CHUNKS;
-        const int pos = pos0 + r;
-        uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-        const int lp = pos / page;
-        if (pos < limit && lp < NP) {
-            const long long phys = table_row[lp];
-            const long long off =
-                ((phys * KV + kv) * page + (pos - lp * page)) * HEAD_DIM;
-            kv4 = __ldg(reinterpret_cast<const uint4*>(k_pages + off) + c);
-            vv4 = __ldg(reinterpret_cast<const uint4*>(v_pages + off) + c);
+struct Int8KV {
+    using elem = int8_t;
+    static constexpr bool kQuant = true;
+    static constexpr int CHUNKS = HEAD_DIM / 16;  // a 128-byte row, 16 B a load
+
+    // Chunk c (values 16c .. 16c+15) of key row `row`, widened to bf16.
+    __device__ static void load(const elem* base, long long row, int c,
+                                uint32_t* dst) {
+        const uint4 v =
+            __ldg(reinterpret_cast<const uint4*>(base + row * HEAD_DIM) + c);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            dst[c * 8 + 2 * i] = i8x2_as_bf16x2(w[i], 0);
+            dst[c * 8 + 2 * i + 1] = i8x2_as_bf16x2(w[i], 2);
         }
-        store_chunk(k_s + r * ROW_WORDS, c, kv4);
-        store_chunk(v_s + r * ROW_WORDS, c, vv4);
     }
-}
+    __device__ static void zero(int c, uint32_t* dst) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dst[c * 8 + i] = 0u;
+    }
+};
+
+// --------------------------------------------------------------------------
+// Key addressing: the row index of the key at position `pos`, or -1 when
+// the position lies outside what the cache holds for this row (never read).
+// --------------------------------------------------------------------------
+
+// Page pool [P, KV, page, HEAD_DIM]: the block reads its own page-table row
+// (there is no scalar prefetch on the GPU). An unallocated table entry (0,
+// the trash page) is never dereferenced for a live position: reads stop at
+// n_stale or the causal bound, and past the table.
+struct PagedRows {
+    const int* table_row;
+    int NP, page, KV, kv;
+    __device__ long long operator()(int pos) const {
+        const int lp = pos / page;
+        if (lp >= NP) return -1;
+        return (static_cast<long long>(table_row[lp]) * KV + kv) * page
+               + (pos - lp * page);
+    }
+};
+
+// Contiguous cache [Bc, KV, S, HEAD_DIM]: row `base` is (cache row, kv).
+struct DenseRows {
+    long long base;      // (cache_row * KV + kv) * S
+    int S;
+    __device__ long long operator()(int pos) const {
+        return pos < S ? base + pos : -1;
+    }
+};
+
+// --------------------------------------------------------------------------
+// Shared memory and per-thread state
+// --------------------------------------------------------------------------
+
+template <int R>
+struct Smem {
+    uint32_t q[R * ROW_WORDS];
+    uint32_t k[TILE_K * ROW_WORDS];
+    uint32_t v[TILE_K * ROW_WORDS];
+    float s[R * (TILE_K + 1)];
+    float ks[TILE_K], vs[TILE_K];    // the tile's int8 scales
+    float m[R], l[R], alpha[R];
+};
 
 // Per-thread slice of the R x HEAD_DIM fp32 accumulator: thread t owns row
 // t / TPR and the bf16 pairs lane, lane + TPR, ... of it.
@@ -100,14 +169,60 @@ struct RowAcc {
     }
 };
 
+// Load `n_rows` query rows of HEAD_DIM bf16 (row r at src + r * stride
+// elements, 16-byte aligned) into padded shared memory; rows >= n_valid are
+// zeroed.
+__device__ __forceinline__ void load_q_rows(const bf16* src, long long stride,
+                                            int n_valid, int n_rows,
+                                            uint32_t* dst) {
+    for (int i = threadIdx.x; i < n_rows * Bf16KV::CHUNKS; i += NTHREADS) {
+        const int r = i / Bf16KV::CHUNKS, c = i % Bf16KV::CHUNKS;
+        if (r < n_valid)
+            Bf16KV::load(src + r * stride, 0, c, dst + r * ROW_WORDS);
+        else
+            Bf16KV::zero(c, dst + r * ROW_WORDS);
+    }
+}
+
+// Load the K and V tile of keys [pos0, pos0 + TILE_K) — and, for int8, their
+// scales. Keys at or past `limit`, and keys the Rows policy does not hold,
+// are zeroed (scale 0) and never read from device memory.
+template <typename KVT, typename Rows>
+__device__ __forceinline__ void load_kv_tile(
+        const typename KVT::elem* k, const typename KVT::elem* v,
+        const float* ks, const float* vs, const Rows& rows, int pos0,
+        int limit, uint32_t* k_s, uint32_t* v_s, float* ks_s,
+        float* vs_s) {
+    for (int i = threadIdx.x; i < TILE_K * KVT::CHUNKS; i += NTHREADS) {
+        const int r = i / KVT::CHUNKS, c = i % KVT::CHUNKS;
+        const int pos = pos0 + r;
+        const long long row = pos < limit ? rows(pos) : -1;
+        if (row >= 0) {
+            KVT::load(k, row, c, k_s + r * ROW_WORDS);
+            KVT::load(v, row, c, v_s + r * ROW_WORDS);
+        } else {
+            KVT::zero(c, k_s + r * ROW_WORDS);
+            KVT::zero(c, v_s + r * ROW_WORDS);
+        }
+    }
+    if constexpr (KVT::kQuant) {
+        for (int r = threadIdx.x; r < TILE_K; r += NTHREADS) {
+            const int pos = pos0 + r;
+            const long long row = pos < limit ? rows(pos) : -1;
+            ks_s[r] = row >= 0 ? __ldg(ks + row) : 0.f;
+            vs_s[r] = row >= 0 ? __ldg(vs + row) : 0.f;
+        }
+    }
+}
+
 // self_column_init: seed the state from the new token attending itself —
-// m = q . k_new * scale, l = 1, acc = v_new. The stale pool does not hold
-// the current token (deferred insert), so its contribution starts here.
+// m = q . k_new * scale, l = 1, acc = v_new. The stale cache does not hold
+// the current token (deferred insert), so its contribution starts here, at
+// full precision in both KV types.
 template <int R>
 __device__ __forceinline__ void self_column_init(
-        const uint32_t* q_s, const __nv_bfloat16* k_new,
-        const __nv_bfloat16* v_new, float scale, float* m_s, float* l_s,
-        RowAcc<R>& acc) {
+        const uint32_t* q_s, const bf16* k_new, const bf16* v_new,
+        float scale, float* m_s, float* l_s, RowAcc<R>& acc) {
     const uint32_t* kn = reinterpret_cast<const uint32_t*>(k_new);
     const uint32_t* vn = reinterpret_cast<const uint32_t*>(v_new);
     for (int r = threadIdx.x; r < R; r += NTHREADS) {
@@ -128,11 +243,12 @@ __device__ __forceinline__ void self_column_init(
     }
 }
 
-// Scores of the R query rows against the TILE_K keys of the tile, scaled,
-// with the caller's mask: s_s[r][j] = visible(r, j) ? q.k * scale : NEG_INF.
-template <int R, typename Visible>
+// Scores of the R query rows against the TILE_K keys of the tile, with the
+// caller's mask: s_s[r][j] = visible(r, j) ? (q.k * scale) [* ks_j] : NEG_INF.
+template <int R, bool QUANT, typename Visible>
 __device__ __forceinline__ void tile_scores(const uint32_t* q_s,
-                                            const uint32_t* k_s, float scale,
+                                            const uint32_t* k_s,
+                                            const float* ks_s, float scale,
                                             float* s_s, Visible visible) {
     for (int i = threadIdx.x; i < R * TILE_K; i += NTHREADS) {
         const int r = i / TILE_K, j = i % TILE_K;
@@ -144,20 +260,23 @@ __device__ __forceinline__ void tile_scores(const uint32_t* q_s,
             const uint32_t qw = qr[p], kw = kr[p];
             s += bf16_lo(qw) * bf16_lo(kw) + bf16_hi(qw) * bf16_hi(kw);
         }
-        s_s[r * (TILE_K + 1) + j] = visible(r, j) ? s * scale : NEG_INF;
+        s *= scale;
+        if constexpr (QUANT) s *= ks_s[j];
+        s_s[r * (TILE_K + 1) + j] = visible(r, j) ? s : NEG_INF;
     }
 }
 
 // attend_block: the online-softmax update for one tile.
 //   m_new = max(m, max_j s), alpha = exp(m - m_new), e_j = exp(s_j - m_new)
-//   l = alpha * l + sum_j e_j,  acc = alpha * acc + sum_j e_j v_j
+//   l = alpha * l + sum_j e_j,  acc = alpha * acc + sum_j e_j [* vs_j] v_j
 // Row statistics run one thread per row and leave e_j in s_s and alpha in
 // alpha_s; then every thread updates its slice of acc from the V tile.
 // Starts after the caller's barrier over s_s; ends with a barrier-free PV.
-template <int R>
+template <int R, bool QUANT>
 __device__ __forceinline__ void attend_block(float* s_s, const uint32_t* v_s,
-                                             float* m_s, float* l_s,
-                                             float* alpha_s, RowAcc<R>& acc) {
+                                             const float* vs_s, float* m_s,
+                                             float* l_s, float* alpha_s,
+                                             RowAcc<R>& acc) {
     for (int r = threadIdx.x; r < R; r += NTHREADS) {
         float* sr = s_s + r * (TILE_K + 1);
         const float m_prev = m_s[r];
@@ -184,7 +303,8 @@ __device__ __forceinline__ void attend_block(float* s_s, const uint32_t* v_s,
         acc.y[i] *= alpha;
     }
     for (int j = 0; j < TILE_K; ++j) {
-        const float e = er[j];
+        float e = er[j];
+        if constexpr (QUANT) e *= vs_s[j];
         const uint32_t* vr = v_s + j * ROW_WORDS;
 #pragma unroll
         for (int i = 0; i < RowAcc<R>::NPAIR; ++i) {
@@ -202,8 +322,7 @@ __device__ __forceinline__ void attend_block(float* s_s, const uint32_t* v_s,
 // bf16, into the row's HEAD_DIM outputs at `dst`.
 template <int R>
 __device__ __forceinline__ void write_row(const RowAcc<R>& acc,
-                                          const float* l_s,
-                                          __nv_bfloat16* dst) {
+                                          const float* l_s, bf16* dst) {
     const float l0 = l_s[acc.row()];
     const float l = l0 == 0.f ? 1.f : l0;
     __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dst);
@@ -212,6 +331,94 @@ __device__ __forceinline__ void write_row(const RowAcc<R>& acc,
         const int p = acc.pair(i);
         if (p < PAIRS)
             out[p] = __floats2bfloat162_rn(acc.x[i] / l, acc.y[i] / l);
+    }
+}
+
+// --------------------------------------------------------------------------
+// The two bodies
+// --------------------------------------------------------------------------
+
+// Decode: the G query heads of one KV head of one slot (rows q[0..G), HEAD_DIM
+// apart) against the stale keys [0, n) plus the self column; outputs to the
+// G rows at `out`.
+template <int G, typename KVT, typename Rows>
+__device__ __forceinline__ void decode_body(
+        Smem<G>& sm, const bf16* q, const bf16* k_new, const bf16* v_new,
+        const typename KVT::elem* k, const typename KVT::elem* v,
+        const float* ks, const float* vs, const Rows& rows, int n,
+        float scale, bf16* out) {
+    load_q_rows(q, HEAD_DIM, G, G, sm.q);
+    __syncthreads();
+    RowAcc<G> acc;
+    self_column_init<G>(sm.q, k_new, v_new, scale, sm.m, sm.l, acc);
+    for (int pos0 = 0; pos0 < n; pos0 += TILE_K) {
+        __syncthreads();    // the previous tile's readers are done
+        load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, n, sm.k, sm.v, sm.ks,
+                          sm.vs);
+        __syncthreads();
+        tile_scores<G, KVT::kQuant>(sm.q, sm.k, sm.ks, scale, sm.s,
+                                    [=](int, int j) { return pos0 + j < n; });
+        __syncthreads();
+        attend_block<G, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
+                                     sm.alpha, acc);
+    }
+    __syncthreads();
+    write_row<G>(acc, sm.l, out + acc.row() * HEAD_DIM);
+}
+
+// Prefill: a tile of `rows_in_tile` query positions first_q, first_q + 1, ...
+// of one head (row r at q + r * stride) against keys [0, n_keys), causal:
+// query row r sees keys s <= first_q + r. Keys past the tile's last query
+// are never walked.
+template <typename KVT, typename Rows>
+__device__ __forceinline__ void prefill_body(
+        Smem<TILE_Q>& sm, const bf16* q, long long stride, int rows_in_tile,
+        int first_q, int n_keys, const typename KVT::elem* k,
+        const typename KVT::elem* v, const float* ks, const float* vs,
+        const Rows& rows, float scale, bf16* out) {
+    load_q_rows(q, stride, rows_in_tile, TILE_Q, sm.q);
+    for (int r = threadIdx.x; r < TILE_Q; r += NTHREADS) {
+        sm.m[r] = NEG_INF;
+        sm.l[r] = 0.f;
+    }
+    RowAcc<TILE_Q> acc;
+#pragma unroll
+    for (int i = 0; i < RowAcc<TILE_Q>::NPAIR; ++i) acc.x[i] = acc.y[i] = 0.f;
+
+    for (int pos0 = 0; pos0 < n_keys; pos0 += TILE_K) {
+        __syncthreads();
+        load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, n_keys, sm.k, sm.v,
+                          sm.ks, sm.vs);
+        __syncthreads();
+        tile_scores<TILE_Q, KVT::kQuant>(
+            sm.q, sm.k, sm.ks, scale, sm.s, [=](int r, int j) {
+                const int s = pos0 + j;
+                return r < rows_in_tile && s < n_keys && s <= first_q + r;
+            });
+        __syncthreads();
+        attend_block<TILE_Q, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
+                                          sm.alpha, acc);
+    }
+    __syncthreads();
+    if (acc.row() < rows_in_tile)
+        write_row<TILE_Q>(acc, sm.l, out + acc.row() * stride);
+}
+
+// --------------------------------------------------------------------------
+// Host side
+// --------------------------------------------------------------------------
+
+// Call f(std::integral_constant<int, G>{}) for a group size the decode
+// kernels are built for; false for any other.
+template <typename F>
+inline bool with_group(int G, F&& f) {
+    switch (G) {
+        case 1: f(std::integral_constant<int, 1>{}); return true;
+        case 2: f(std::integral_constant<int, 2>{}); return true;
+        case 4: f(std::integral_constant<int, 4>{}); return true;
+        case 8: f(std::integral_constant<int, 8>{}); return true;
+        case 16: f(std::integral_constant<int, 16>{}); return true;
+        default: return false;
     }
 }
 

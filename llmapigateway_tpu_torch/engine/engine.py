@@ -1,14 +1,22 @@
-"""The serving engine: slot-based continuous batching over the paged KV
-pool, in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
+"""The serving engine: slot-based continuous batching over the KV cache,
+in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
 
+* **Two KV layouts** (``kv_layout``): ``paged`` — a global page pool with a
+  page table per slot (ops/paged_attention.py) — and ``contiguous`` — a
+  dense ``[L, B, KV, S, Dh]`` cache, one row per slot (models/llama.py
+  ``KVCache``, ops/flash_attention.py). Either holds bf16 K/V, or int8 K/V
+  with per-token fp32 scales (``kv_quant: "int8"``).
 * **Fixed slots.** Decode runs the full slot batch ``[B]`` every step;
   inactive slots ride along masked (``active``): they attend only their self
-  column and their K/V writes land on trash page 0.
+  column and their K/V writes land on trash page 0 (paged) or on their own
+  row's tail (contiguous), where nothing reads them before they are
+  rewritten.
 * **Chunked, batched prefill.** Each scheduler step advances every pending
   prompt by ONE chunk of at most ``prefill_chunk`` tokens, up to
   ``prefill_batch`` prompts in one forward call (rows padded to the
   longest chunk of the group; pad positions lie past each prompt and are
-  overwritten before any read). The first token is sampled inside the
+  overwritten before any read; in the contiguous layout pad positions past
+  the cache extent are dropped). The first token is sampled inside the
   prefill call, from the last real position of each row. A call one token
   wide runs the decode path by the forward's protocol (stale pool plus
   self column, then the insert), which is the same attention.
@@ -25,7 +33,8 @@ pool, in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
   is touched only on the event-loop thread.
 * **Admission reserves pages** for a request's whole lifetime
   (engine/paged.py): pool exhaustion is backpressure at admission, never a
-  mid-generation failure.
+  mid-generation failure. The contiguous layout owns a whole row per slot,
+  so a free slot is enough.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking
 for ``cuda`` where there is none raises instead of running on the CPU.
@@ -46,7 +55,8 @@ import torch
 from ..config.schemas import LocalEngineConfig
 from ..models import forward_fn, init_fn
 from ..models.config import ModelConfig, get_preset
-from ..models.llama import forward_hidden, head_logits
+from ..models.llama import KVCache, forward_hidden, head_logits
+from ..ops.flash_attention import make_cache_attention_fn
 from ..ops.paged_attention import PagedKVCache, make_paged_attention_fn
 from .paged import PageAllocator
 from .sampling import SamplingParams, sample
@@ -128,18 +138,25 @@ def _not_ported(knob: str, item: str) -> ValueError:
 def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
     """Reject every knob whose JAX feature the port does not have yet, so a
     providers.json never silently means something else here."""
-    if cfg.prefix_cache:
+    if cfg.kv_layout not in ("paged", "contiguous"):
+        raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}; expected "
+                         f"'paged' | 'contiguous'")
+    if cfg.kv_quant not in ("", "int8"):
+        raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}; expected "
+                         f"'' | 'int8'")
+    # The prefix cache and multi-page blocks exist only over the page pool:
+    # the JAX engine treats both knobs as inert under the contiguous layout
+    # (config/schemas.py, engine.py:720 sits in its paged branch), so the
+    # port refuses them only where they would mean something. Otherwise a
+    # contiguous providers.json with the default prefix_cache=true would be
+    # served by the JAX package and refused here.
+    if cfg.kv_layout == "paged" and cfg.prefix_cache:
         raise _not_ported("prefix_cache=true", "prefix cache")
-    if cfg.kv_quant:
-        raise _not_ported(f"kv_quant={cfg.kv_quant!r}", "int8 KV variant")
-    if model_cfg.sliding_window:
-        raise _not_ported("a sliding-window model", "window variant")
-    if cfg.kv_pages_per_block != 1:
+    if cfg.kv_layout == "paged" and cfg.kv_pages_per_block != 1:
         raise _not_ported(f"kv_pages_per_block={cfg.kv_pages_per_block}",
                           "multi-page blocks")
-    if cfg.kv_layout != "paged":
-        raise _not_ported(f"kv_layout={cfg.kv_layout!r}",
-                          "contiguous layout with the dense kernels")
+    if model_cfg.sliding_window:
+        raise _not_ported("a sliding-window model", "window variant")
     if cfg.spec_draft_len:
         raise _not_ported("spec_draft_len", "speculative decoding")
     if cfg.quant:
@@ -153,15 +170,15 @@ def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
     if cfg.attention not in ("auto", "pallas"):
         raise ValueError(
             f"attention={cfg.attention!r}: the PyTorch engine always runs "
-            f"its paged attention kernels on the card (their plain versions "
-            f"on CPU tensors); use 'auto'")
+            f"its attention kernels on the card (their plain versions on "
+            f"CPU tensors); use 'auto'")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {cfg.dtype!r}; expected one of "
                          f"{sorted(_DTYPES)}")
 
 
 class InferenceEngine:
-    """Owns params, the paged KV pool, and the batching loop."""
+    """Owns params, the KV cache, and the batching loop."""
 
     def __init__(self, engine_cfg: LocalEngineConfig,
                  device: str | torch.device = "cuda"):
@@ -175,6 +192,8 @@ class InferenceEngine:
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[engine_cfg.dtype]
+        self.paged = engine_cfg.kv_layout == "paged"
+        self.kv_quant = engine_cfg.kv_quant
 
         self.B = engine_cfg.max_batch_size
         self.S = min(engine_cfg.max_seq_len, model_cfg.max_seq_len)
@@ -219,16 +238,26 @@ class InferenceEngine:
     # -- initialization ------------------------------------------------------
     def _init_state(self) -> None:
         c = self.model_cfg
-        page = self.kv_page
-        per_slot = (self.S + page - 1) // page
-        num_pages = self.cfg.kv_num_pages or (self.B * per_slot + 1)
-        if num_pages - 1 < per_slot:
-            raise ValueError(
-                f"kv_num_pages={num_pages} cannot hold one max-footprint "
-                f"sequence ({per_slot} pages of {page})")
-        self.allocator = PageAllocator(num_pages, page, self.B, self.S)
-        self.cache = PagedKVCache.create(c, num_pages, page, self.dtype,
-                                         device=self.device)
+        self.allocator: PageAllocator | None = None
+        if self.paged:
+            page = self.kv_page
+            per_slot = (self.S + page - 1) // page
+            num_pages = self.cfg.kv_num_pages or (self.B * per_slot + 1)
+            if num_pages - 1 < per_slot:
+                raise ValueError(
+                    f"kv_num_pages={num_pages} cannot hold one max-footprint "
+                    f"sequence ({per_slot} pages of {page})")
+            self.allocator = PageAllocator(num_pages, page, self.B, self.S)
+            self.cache = PagedKVCache.create(c, num_pages, page, self.dtype,
+                                             kv_quant=self.kv_quant,
+                                             device=self.device)
+        else:
+            # One [S] row per slot and layer: int8 values plus
+            # [L, B, KV, 1, S] fp32 scales under kv_quant (JAX
+            # engine.py:750-770).
+            self.cache = KVCache.create(c, self.B, self.S, self.dtype,
+                                        kv_quant=self.kv_quant,
+                                        device=self.device)
         self._d_table: torch.Tensor | None = None
         self._table_dirty = True
         # Host-authoritative per-slot state, mirrored to the device when it
@@ -354,12 +383,14 @@ class InferenceEngine:
                 self._head = None
                 continue
             total = min(len(req.prompt_ids) + req.max_tokens, self.S)
-            if not self.allocator.can_admit(total):
-                break
+            if self.allocator is not None:
+                if not self.allocator.can_admit(total):
+                    break
             self._head = None
             req.slot = self._free_slots.pop()
-            self.allocator.allocate(req.slot, total)
-            self._table_dirty = True
+            if self.allocator is not None:
+                self.allocator.allocate(req.slot, total)
+                self._table_dirty = True
             req.prefill_pos = 0
             self._running[req.slot] = req
             self._prefilling[req.slot] = req
@@ -453,8 +484,9 @@ class InferenceEngine:
     @torch.no_grad()
     def _exec_prefill(self, slots, poss, chunks, samps) -> torch.Tensor:
         """The one prefill forward: K rows of prompt chunks (padded to the
-        longest), each routed by its slot's page-table row; samples each
-        row's first token from its last real position. Returns [K]."""
+        longest), each routed to its slot's page-table row (paged) or cache
+        row (contiguous, read and written in place); samples each row's
+        first token from its last real position. Returns [K]."""
         K = len(slots)
         width = max(len(ch) for ch in chunks)
         padded = np.zeros((K, width), np.int64)
@@ -465,8 +497,10 @@ class InferenceEngine:
         slot_idx = self._to_device(np.asarray(slots, np.int64))
         last_idx = self._to_device(
             np.asarray([len(ch) - 1 for ch in chunks], np.int64))
-        table = self._device_table()[slot_idx]
-        attn = make_paged_attention_fn(table)
+        if self.paged:
+            attn = make_paged_attention_fn(self._device_table()[slot_idx])
+        else:
+            attn = make_cache_attention_fn(slot_idx.int())
         hidden, self.cache = forward_hidden(
             self.params, self.model_cfg, tokens, start, self.cache,
             attention_fn=attn)
@@ -520,7 +554,8 @@ class InferenceEngine:
                 frequency_penalty=self._to_device(self.samp_frequency))
             self._d_dirty = False
         greedy = self._all_greedy()
-        attn = make_paged_attention_fn(self._device_table())
+        attn = (make_paged_attention_fn(self._device_table()) if self.paged
+                else make_cache_attention_fn())
         tokens, lengths, active = self._d_tokens, self._d_lengths, \
             self._d_active
         out = []
@@ -614,5 +649,6 @@ class InferenceEngine:
             self.lengths[req.slot] = 0
             self._free_slots.append(req.slot)
             self._d_dirty = True
-            self.allocator.release(req.slot)
-            self._table_dirty = True
+            if self.allocator is not None:
+                self.allocator.release(req.slot)
+                self._table_dirty = True

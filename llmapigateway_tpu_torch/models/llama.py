@@ -6,24 +6,28 @@
   ``layers/{attn_norm, wq, wk, wv, wo, mlp_norm, wg, wu, wd}``, each layer
   leaf ``[L, ...]``), so models/convert.py carries weights across as-is. The
   layer scan becomes a Python loop over layer indices.
-* One forward for prefill and decode over the paged KV pool; the cache
+* One forward for prefill and decode over either KV layout; the cache
   attention is the ``attention_fn`` argument (ops/paged_attention.py
-  ``make_paged_attention_fn``), with the deferred-insert protocol: at
-  T == 1 the ``.decode`` attends the STALE pool plus a self column and every
-  layer's K/V is written once after the loop by ``.insert_all``; T > 1
-  chunks insert, then attend.
+  ``make_paged_attention_fn`` over the page pool, ops/flash_attention.py
+  ``make_cache_attention_fn`` over the contiguous :class:`KVCache`), with
+  the deferred-insert protocol: at T == 1 the ``.decode`` attends the
+  STALE cache plus a self column and every layer's K/V is written once
+  after the loop by ``.insert_all``; T > 1 chunks insert, then attend.
+* The contiguous cache, its inserts and the int8 KV quantizer live here,
+  as in the JAX package; a cache side is a tensor or the int8
+  ``{"q", "s"}`` dict.
 * Projections, MLP and head are ``torch.matmul`` (the JAX package leaves
   them to XLA); RMSNorm, RoPE tables and logits are fp32.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import attend_block, self_column_init
+from ..ops.flash_attention import causal_core, decode_core
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -138,33 +142,205 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
+class KVCache(NamedTuple):
+    """Dense per-slot KV cache, stacked over layers, **head-major** (the JAX
+    package's ``KVCache``): k, v ``[L, B, KV, S, Dh]``. The engine updates it
+    in place (one allocation for the engine's lifetime). With
+    ``kv_quant="int8"`` each of k/v is the dict ``{"q": int8 [L, B, KV, S,
+    Dh], "s": fp32 [L, B, KV, 1, S]}`` of symmetric per-token, per-head
+    scales."""
+    k: Any
+    v: Any
+
+    @classmethod
+    def create(cls, config: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, kv_quant: str = "",
+               device="cpu") -> "KVCache":
+        shape = (config.n_layers, batch, config.n_kv_heads, max_seq,
+                 config.head_dim)
+        return cls(k=zeros_kv(shape, dtype, kv_quant, device),
+                   v=zeros_kv(shape, dtype, kv_quant, device))
+
+
+def zeros_kv(shape, dtype, kv_quant: str, device):
+    """One zeroed cache side of value shape ``[..., N, Dh]``: a tensor, or
+    the int8 dict whose scales are ``[..., 1, N]``. The unit dimension
+    exists for the TPU's (8, 128) tiling; the port keeps it so both
+    packages' caches compare like with like."""
+    if kv_quant == "int8":
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "s": torch.zeros((*shape[:-2], 1, shape[-2]),
+                                 dtype=torch.float32, device=device)}
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def layer_of(side, i: int):
+    """Layer ``i`` of a stacked cache side (tensor or int8 dict), as views:
+    writes through them land in the stacked cache."""
+    if isinstance(side, dict):
+        return {"q": side["q"][i], "s": side["s"][i]}
+    return side[i]
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token, per-head int8 over the LAST dim (Dh).
+    x [..., Dh] → (int8 same shape, fp32 scale [...]). Bit-exact with the
+    JAX package's: fp32 amax, ``s = max(amax, 1e-30) / 127``, a division by
+    ``s`` (not a product with its reciprocal), round half to even."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = torch.clamp(amax, min=1e-30) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _write_positions(S: int, T: int, lengths: torch.Tensor,
+                     active: torch.Tensor | None):
+    """(pos, src), each [B, T]: new token ``src`` of row b is written at
+    position ``pos`` of the row.
+
+    * Active rows write token t at ``lengths + t``. Positions past the cache
+      extent are DROPPED: their writes are redirected to repeat the write
+      of position S-1 (same position, same value), so a ragged group's pad
+      positions past S never shift onto real keys. (JAX's
+      ``dynamic_update_slice`` would clamp the start to S-T and shift the
+      whole chunk; the JAX engine never lets that happen by clamping its
+      prefill bucket, engine.py:2446-2449, and the port pads a group to its
+      longest chunk instead.)
+    * Inactive rows write at the row tail ``[S-T, S)``, exactly where JAX's
+      clamp sends them (models/llama.py ``insert_kv``): those positions are
+      rewritten before any step can see them.
+    """
+    start = lengths.long()
+    if active is not None:
+        start = torch.where(active, start, S - T)
+    start = start.clamp(0, S - 1)
+    pos = (start[:, None] + torch.arange(T, device=lengths.device)).clamp(
+        max=S - 1)
+    return pos, pos - start[:, None]
+
+
+def insert_kv(layer_k, layer_v, k_new: torch.Tensor, v_new: torch.Tensor,
+              lengths: torch.Tensor, active: torch.Tensor | None,
+              rows: torch.Tensor | None = None):
+    """Insert new tokens at ``[lengths, lengths+T)`` of each row of one
+    layer's head-major cache, IN PLACE (the JAX version returns new
+    arrays). layer_k/v: [Bc, KV, S, Dh] or the int8 ``{"q","s"}`` dicts (new
+    tokens quantize at write time); k_new/v_new: [B, T, KV, Dh]; lengths,
+    active: [B]; rows: optional [B] cache row of each new row (default: row
+    b). See :func:`_write_positions` for inactive rows and positions past S.
+    Returns the (same) caches."""
+    S = (layer_k["q"] if isinstance(layer_k, dict) else layer_k).shape[2]
+    B, T = k_new.shape[:2]
+    pos, src = _write_positions(S, T, lengths, active)
+    b = torch.arange(B, device=k_new.device)[:, None]
+    row = b if rows is None else rows.long()[:, None]
+
+    def put(side, new):
+        vals = new[b, src]                                  # [B, T, KV, Dh]
+        # Advanced indices separated by a slice: the indexed view is
+        # [B, T, KV(, Dh)], matching the new tokens.
+        if isinstance(side, dict):
+            q, s = quantize_kv(vals)
+            side["q"][row, :, pos] = q
+            side["s"][row, :, 0, pos] = s
+        else:
+            side[row, :, pos] = vals.to(side.dtype)
+
+    put(layer_k, k_new)
+    put(layer_v, v_new)
+    return layer_k, layer_v
+
+
+def insert_kv_stacked(cache_k, cache_v, k_news: torch.Tensor,
+                      v_news: torch.Tensor, lengths: torch.Tensor,
+                      active: torch.Tensor | None,
+                      rows: torch.Tensor | None = None):
+    """Insert every layer's new tokens into the stacked cache with one
+    scatter per leaf, IN PLACE — the deferred-decode half of
+    :func:`insert_kv`. cache_k/v: [L, Bc, KV, S, Dh] or the int8 dicts;
+    k_news/v_news: [L, B, T, KV, Dh] (quantized here, at write time);
+    lengths, active, rows as in :func:`insert_kv`. Returns the caches."""
+    S = (cache_k["q"] if isinstance(cache_k, dict) else cache_k).shape[3]
+    B, T = k_news.shape[1:3]
+    pos, src = _write_positions(S, T, lengths, active)
+    b = torch.arange(B, device=k_news.device)[:, None]
+    row = b if rows is None else rows.long()[:, None]
+
+    def put(side, news):
+        vals = news[:, b, src]                           # [L, B, T, KV, Dh]
+        # The indexed view of side[:, row, :, pos] is [B, T, L, KV(, Dh)].
+        if isinstance(side, dict):
+            q, s = quantize_kv(vals)
+            side["q"][:, row, :, pos] = q.permute(1, 2, 0, 3, 4)
+            side["s"][:, row, :, 0, pos] = s.permute(1, 2, 0, 3)
+        else:
+            side[:, row, :, pos] = vals.permute(1, 2, 0, 3, 4).to(side.dtype)
+
+    put(cache_k, k_news)
+    put(cache_v, v_news)
+    return cache_k, cache_v
+
+
+def _kv_dequant_views(layer_k, layer_v, dtype):
+    """(k, ks, v, vs) from a plain or int8 cache layer. The per-token scale
+    factors OUT of the Dh contraction — scores multiply by ``ks`` after the
+    QK product, probabilities by ``vs`` before the PV product — so no
+    dequantized [S, Dh] copy is built. Scales come back in their stored
+    [.., KV, 1, S] form (the unit dim broadcasts over the query rows)."""
+    if isinstance(layer_k, dict):
+        return (layer_k["q"].to(dtype), layer_k["s"],
+                layer_v["q"].to(dtype), layer_v["s"])
+    return layer_k, None, layer_v, None
+
+
 def dense_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
-                           v_new: torch.Tensor, layer_k: torch.Tensor,
-                           layer_v: torch.Tensor, lengths: torch.Tensor,
+                           v_new: torch.Tensor, layer_k, layer_v,
+                           lengths: torch.Tensor,
                            active: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """Deferred-insert decode attention: one query token against the STALE
-    cache prefix ``[0, lengths)`` plus the new token itself (self column),
-    through the shared block math. Writes nothing.
+    cache prefix ``[0, lengths)`` plus the new token itself (self column,
+    full precision under int8 KV), through the shared block math. Writes
+    nothing.
 
-    q [B,1,H,Dh]; k_new/v_new [B,1,KV,Dh]; layer_k/v [B,KV,S,Dh] (stale).
-    Returns out [B, 1, H*Dh] in q.dtype. P·V runs in fp32, as in the Pallas
-    and CUDA kernels; the JAX twin casts P to the cache dtype first, which
-    is the same function for an fp32 cache.
+    q [B,1,H,Dh]; k_new/v_new [B,1,KV,Dh]; layer_k/v [B,KV,S,Dh] (stale) or
+    the int8 ``{"q","s"}`` dicts. Returns out [B, 1, H*Dh] in q.dtype. P·V
+    runs in fp32, as in the Pallas and CUDA kernels; the JAX twin casts P
+    to the cache dtype first, which is the same function for an fp32 cache.
     """
     B, _, H, Dh = q.shape
-    KV = k_new.shape[2]
-    S = layer_k.shape[2]
-    qg = q[:, 0].reshape(B, KV, H // KV, Dh)
-    m, l, acc = self_column_init(qg, k_new[:, 0, :, None, :],
-                                 v_new[:, 0, :, None, :])
-    if S:
-        visible = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
-        if active is not None:
-            visible = visible & active[:, None]
-        m, l, acc = attend_block(qg, layer_k, layer_v, m, l, acc,
-                                 visible[:, None, None, :])
-    return (acc / l).reshape(B, 1, H * Dh).to(q.dtype)
+    lk, ks, lv, vs = _kv_dequant_views(layer_k, layer_v, q.dtype)
+    n_stale = lengths if active is None else torch.where(active, lengths, 0)
+    out = decode_core(q[:, 0], k_new[:, 0], v_new[:, 0], lk, lv, n_stale,
+                      ks, vs)
+    return out.reshape(B, 1, H * Dh)
+
+
+def dense_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, layer_k, layer_v,
+                          lengths: torch.Tensor,
+                          active: torch.Tensor | None = None):
+    """Reference cache attention in plain PyTorch (the flash kernels replace
+    it on the card — ops/flash_attention.py): insert the chunk IN PLACE,
+    then causal attention over the whole cache row.
+
+    q [B, T, H, Dh] (RoPE applied); k_new/v_new [B, T, KV, Dh];
+    layer_k/v [B, KV, S, Dh] or the int8 dicts; lengths [B] (insert offset).
+    Returns (attn_out [B, T, H*Dh], layer_k, layer_v).
+    """
+    layer_k, layer_v = insert_kv(layer_k, layer_v, k_new, v_new, lengths,
+                                 active)
+    lk, ks, lv, vs = _kv_dequant_views(layer_k, layer_v, q.dtype)
+    out = causal_core(q, lk, lv, lengths, ks, vs, active)
+    return out, layer_k, layer_v
+
+
+# The deferred-decode protocol (forward_hidden): decode steps attend the
+# stale cache plus the self column, and the cache write happens once per
+# step through insert_kv_stacked.
+dense_cache_attention.decode = dense_decode_attention
+dense_cache_attention.insert_all = insert_kv_stacked
 
 
 _GATE_ACTS = {
@@ -232,13 +408,13 @@ def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if decode_attend is not None:
-            attn = decode_attend(q, k, v, cache.k[i], cache.v[i], lengths,
-                                 active)
+            attn = decode_attend(q, k, v, layer_of(cache.k, i),
+                                 layer_of(cache.v, i), lengths, active)
             ys_k.append(k)
             ys_v.append(v)
         else:
-            attn, _, _ = attention_fn(q, k, v, cache.k[i], cache.v[i],
-                                      lengths, active)
+            attn, _, _ = attention_fn(q, k, v, layer_of(cache.k, i),
+                                      layer_of(cache.v, i), lengths, active)
         x = x + attn @ lp["wo"]
         h = rms_norm(x, lp["mlp_norm"], c.rms_eps, c.rms_offset)
         x = x + swiglu_mlp(h, lp["wg"], lp["wu"], lp["wd"], c.act)

@@ -1,17 +1,18 @@
 """Build and bind the port's CUDA kernels (``csrc/``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, on first use, from the files in the checkout
 only, into ``llmapigateway_tpu_torch/_build/`` (listed in ``.gitignore``).
-The library is loaded with ``ctypes``: pointers, the stream and scalars go
+The sources build in parallel, one ``nvcc`` each, all started together.
+Each library is loaded with ``ctypes``: pointers, the stream and scalars go
 across as ``c_void_p``/``c_int``/``c_float``, and every C entry returns
 ``cudaGetLastError()`` after its launch, which the wrapper turns into an
 exception. Nothing here runs at import time: the CPU tests import this
 module on a machine with no ``nvcc``.
 
-The library's file name carries a digest of the sources and flags, so an
-edited kernel is never served from a stale build; one build per process
-(and per source version across processes) is reused.
+A library's file name carries a digest of its source, every header and the
+flags, so an edited kernel is never served from a stale build; one build
+per process (and per source version across processes) is reused.
 """
 from __future__ import annotations
 
@@ -30,12 +31,12 @@ from pathlib import Path
 import torch
 
 HEAD_DIM = 128                      # the kernels' compiled head width
-GROUP_SIZES = (1, 2, 4, 8, 16)      # query heads per KV head the decode kernel takes
+GROUP_SIZES = (1, 2, 4, 8, 16)      # query heads per KV head the decode kernels take
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCE = "paged_attention.cu"
+SOURCES = ("paged_attention", "flash_attention")     # csrc/<name>.cu
 HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,85 +61,132 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (SOURCE, *HEADERS):
-        h.update((CSRC_DIR / name).read_bytes())
+    for part in (f"{name}.cu", *HEADERS):
+        h.update((CSRC_DIR / part).read_bytes())
     return h.hexdigest()[:16]
 
 
 @functools.cache
-def build() -> Build:
-    """Compile the kernels (once per process; an existing build of the same
-    sources is reused)."""
+def build() -> dict[str, Build]:
+    """Compile every source (once per process; an existing build of the
+    same sources is reused), all ``nvcc`` processes running at once."""
     with _build_lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        target = BUILD_DIR / f"libpaged_attention-{_digest()}.so"
-        if target.exists():
-            return Build(target, 0.0, "")
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / SOURCE)]
-        t0 = time.monotonic()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.monotonic() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-        os.replace(tmp, target)        # atomic against concurrent builds
-        return Build(target, seconds, proc.stdout + proc.stderr)
+        builds: dict[str, Build] = {}
+        running = []
+        for name in SOURCES:
+            target = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+            if target.exists():
+                builds[name] = Build(target, 0.0, "")
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            log = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                    text=True)
+            running.append((name, proc, log, tmp, target, time.monotonic()))
+        failed = []
+        for name, proc, log, tmp, target, t0 in running:
+            rc = proc.wait()
+            seconds = time.monotonic() - t0
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if rc != 0:
+                os.unlink(tmp)
+                failed.append(f"{name}.cu: nvcc failed ({rc}):\n"
+                              f"{text[-8000:]}")
+                continue
+            os.replace(tmp, target)        # atomic against concurrent builds
+            builds[name] = Build(target, seconds, text)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return builds
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
+def library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[name].path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.paged_decode_attention_bf16.argtypes = (
-        [ptr] * 8 + [i32] * 6 + [f32, ptr])
-    lib.paged_decode_attention_bf16.restype = i32
-    lib.paged_prefill_attention_bf16.argtypes = (
-        [ptr] * 6 + [i32] * 7 + [f32, ptr])
-    lib.paged_prefill_attention_bf16.restype = i32
-    lib.pa_error_string.argtypes = [i32]
-    lib.pa_error_string.restype = ctypes.c_char_p
+    if name == "paged_attention":
+        lib.paged_decode_attention.argtypes = (
+            [ptr] * 10 + [i32] * 6 + [f32, i32, ptr])
+        lib.paged_prefill_attention.argtypes = (
+            [ptr] * 8 + [i32] * 7 + [f32, i32, ptr])
+        entries = ("paged_decode_attention", "paged_prefill_attention")
+    else:
+        lib.flash_decode_attention.argtypes = (
+            [ptr] * 10 + [i32] * 5 + [f32, i32, ptr])
+        lib.flash_prefill_attention.argtypes = (
+            [ptr] * 8 + [i32] * 6 + [f32, i32, ptr])
+        entries = ("flash_decode_attention", "flash_prefill_attention")
+    for entry in entries:
+        getattr(lib, entry).restype = i32
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [i32]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+def _call(lib_name: str, entry: str, device: torch.device, *args) -> None:
+    """Launch ``entry`` on the current stream of ``device``; raise on a
+    refused launch."""
+    lib = library(lib_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({lib.pa_error_string(rc).decode()})")
+        msg = getattr(lib, f"{lib_name}_error_string")(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
 
 
-def launch_decode(q, k_new, v_new, k_pages, v_pages, page_table, n_stale,
-                  out) -> None:
-    """Launch the decode kernel on the current stream (shapes and types were
-    checked by the wrapper in ops/paged_attention.py)."""
-    lib = library()
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+# Each launcher takes (values, scales) pairs for K and V — scales None for a
+# bf16 cache — and tensors whose shapes, types and devices the wrapper
+# (ops/paged_attention.py, ops/flash_attention.py) has checked.
+
+def launch_paged_decode(q, k_new, v_new, k, v, quant, page_table, n_stale,
+                        out) -> None:
     B, H, Dh = q.shape
-    KV, page = k_pages.shape[1], k_pages.shape[2]
-    NP = page_table.shape[1]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode_attention_bf16(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            n_stale.data_ptr(), out.data_ptr(),
-            B, H, KV, Dh, page, NP, Dh ** -0.5, stream)
-    _check(lib, "paged_decode_attention", rc)
+    KV, page = k[0].shape[1], k[0].shape[2]
+    _call("paged_attention", "paged_decode_attention", q.device,
+          q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[0].data_ptr(),
+          v[0].data_ptr(), _ptr(k[1]), _ptr(v[1]), page_table.data_ptr(),
+          n_stale.data_ptr(), out.data_ptr(),
+          B, H, KV, Dh, page, page_table.shape[1], Dh ** -0.5, int(quant))
 
 
-def launch_prefill(q, k_pages, v_pages, page_table, start, out) -> None:
-    """Launch the prefill kernel on the current stream."""
-    lib = library()
+def launch_paged_prefill(q, k, v, quant, page_table, start, out) -> None:
     B, T, H, Dh = q.shape
-    KV, page = k_pages.shape[1], k_pages.shape[2]
-    NP = page_table.shape[1]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_prefill_attention_bf16(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), start.data_ptr(), out.data_ptr(),
-            B, T, H, KV, Dh, page, NP, Dh ** -0.5, stream)
-    _check(lib, "paged_prefill_attention", rc)
+    KV, page = k[0].shape[1], k[0].shape[2]
+    _call("paged_attention", "paged_prefill_attention", q.device,
+          q.data_ptr(), k[0].data_ptr(), v[0].data_ptr(), _ptr(k[1]),
+          _ptr(v[1]), page_table.data_ptr(), start.data_ptr(), out.data_ptr(),
+          B, T, H, KV, Dh, page, page_table.shape[1], Dh ** -0.5, int(quant))
+
+
+def launch_flash_decode(q, k_new, v_new, k, v, quant, rows, n_stale,
+                        out) -> None:
+    B, H, Dh = q.shape
+    KV, S = k[0].shape[1], k[0].shape[2]
+    _call("flash_attention", "flash_decode_attention", q.device,
+          q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[0].data_ptr(),
+          v[0].data_ptr(), _ptr(k[1]), _ptr(v[1]), _ptr(rows),
+          n_stale.data_ptr(), out.data_ptr(),
+          B, H, KV, Dh, S, Dh ** -0.5, int(quant))
+
+
+def launch_flash_prefill(q, k, v, quant, rows, start, out) -> None:
+    B, T, H, Dh = q.shape
+    KV, S = k[0].shape[1], k[0].shape[2]
+    _call("flash_attention", "flash_prefill_attention", q.device,
+          q.data_ptr(), k[0].data_ptr(), v[0].data_ptr(), _ptr(k[1]),
+          _ptr(v[1]), _ptr(rows), start.data_ptr(), out.data_ptr(),
+          B, T, H, KV, Dh, S, Dh ** -0.5, int(quant))

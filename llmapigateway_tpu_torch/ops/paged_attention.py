@@ -13,6 +13,9 @@ layouts:
 * ``page_table``: ``[B, NP]`` int32 — slot's logical page j → physical
   page. Unallocated entries are 0 (trash) and are never read: reads are
   bounded by ``n_stale`` (decode) or the causal bound (prefill).
+* With ``kv_quant="int8"`` each pool is the dict ``{"q": int8 [P, KV, page,
+  Dh], "s": fp32 [P, KV, 1, page]}``; new tokens quantize at write time and
+  the kernels' int8 bodies apply the scales to scores and probabilities.
 
 Kernels (``csrc/paged_attention.cu``, built and bound by ops/_kernels.py):
 
@@ -28,31 +31,36 @@ launched, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import dense_decode_attention
+from ..models.llama import quantize_kv, zeros_kv
 from . import _kernels
-from .flash_attention import NEG_INF, attend_block
+from .flash_attention import (causal_core, check_geometry, check_kernel_args,
+                              decode_core, split_kv)
 
 
 class PagedKVCache(NamedTuple):
-    """k, v: [L, P, KV, page, Dh] — the global page pool per layer. The
-    engine updates it in place (the JAX package's pool is an immutable
-    array threaded through the step programs; here one allocation lives
-    for the engine's lifetime)."""
-    k: torch.Tensor
-    v: torch.Tensor
+    """k, v: [L, P, KV, page, Dh] — the global page pool per layer, or with
+    ``kv_quant="int8"`` the dicts ``{"q": int8 [L, P, KV, page, Dh], "s":
+    fp32 [L, P, KV, 1, page]}`` (per-token, per-head scales; the unit dim
+    exists for the TPU's tiling — models/llama.py ``zeros_kv``). The engine
+    updates it in place (the JAX package's pool is an immutable array
+    threaded through the step programs; here one allocation lives for the
+    engine's lifetime)."""
+    k: Any
+    v: Any
 
     @classmethod
     def create(cls, config: ModelConfig, num_pages: int, page_size: int,
-               dtype=torch.bfloat16, device="cpu") -> "PagedKVCache":
+               dtype=torch.bfloat16, kv_quant: str = "",
+               device="cpu") -> "PagedKVCache":
         shape = (config.n_layers, num_pages, config.n_kv_heads, page_size,
                  config.head_dim)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        return cls(k=zeros_kv(shape, dtype, kv_quant, device),
+                   v=zeros_kv(shape, dtype, kv_quant, device))
 
 
 def _write_targets(page_table: torch.Tensor, lengths: torch.Tensor, T: int,
@@ -72,87 +80,91 @@ def _write_targets(page_table: torch.Tensor, lengths: torch.Tensor, T: int,
     return phys.reshape(-1), (pos % page).reshape(-1)
 
 
-def paged_insert_kv(layer_k: torch.Tensor, layer_v: torch.Tensor,
-                    k_new: torch.Tensor, v_new: torch.Tensor,
-                    page_table: torch.Tensor, lengths: torch.Tensor,
-                    active: torch.Tensor | None):
+def paged_insert_kv(layer_k, layer_v, k_new: torch.Tensor,
+                    v_new: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor, active: torch.Tensor | None):
     """Scatter new tokens into one layer's page pool at logical positions
     ``[lengths, lengths+T)`` per slot, IN PLACE (the JAX version returns new
-    pools). layer_k/v: [P, KV, page, Dh]; k_new/v_new: [B, T, KV, Dh];
+    pools). layer_k/v: [P, KV, page, Dh] or the int8 ``{"q","s"}`` dicts (new
+    tokens quantize at write time); k_new/v_new: [B, T, KV, Dh];
     page_table: [B, NP]; lengths: [B]. Inactive slots and positions past
     the table's reach land on trash page 0. Returns the (same) pools."""
-    KV, page, Dh = layer_k.shape[1:]
-    B, T = k_new.shape[:2]
+    page = split_kv(layer_k)[0].shape[2]
+    B, T, KV, Dh = k_new.shape
     phys, off = _write_targets(page_table, lengths, T, page, active)
-    # Advanced indices separated by a slice: the indexed view is
-    # [B*T, KV, Dh], matching the flattened new tokens.
-    layer_k[phys, :, off] = k_new.reshape(B * T, KV, Dh).to(layer_k.dtype)
-    layer_v[phys, :, off] = v_new.reshape(B * T, KV, Dh).to(layer_v.dtype)
+
+    def put(side, new):
+        # Advanced indices separated by a slice: the indexed view is
+        # [B*T, KV(, Dh)], matching the flattened new tokens.
+        new = new.reshape(B * T, KV, Dh)
+        if isinstance(side, dict):
+            q, s = quantize_kv(new)
+            side["q"][phys, :, off] = q
+            side["s"][phys, :, 0, off] = s
+        else:
+            side[phys, :, off] = new.to(side.dtype)
+
+    put(layer_k, k_new)
+    put(layer_v, v_new)
     return layer_k, layer_v
 
 
-def paged_insert_all(pool_k: torch.Tensor, pool_v: torch.Tensor,
-                     k_news: torch.Tensor, v_news: torch.Tensor,
-                     page_table: torch.Tensor, lengths: torch.Tensor,
-                     active: torch.Tensor | None):
+def paged_insert_all(pool_k, pool_v, k_news: torch.Tensor,
+                     v_news: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor, active: torch.Tensor | None):
     """Insert every layer's new tokens into the stacked pool with one
-    scatter per side, IN PLACE (the paged half of the deferred-insert
-    protocol). pool_k/v: [L, P, KV, page, Dh]; k_news/v_news:
-    [L, B, T, KV, Dh]; lengths: [B] — the first token's logical position.
-    Masked/overflow writes land on trash page 0. Returns the pools."""
-    page = pool_k.shape[3]
+    scatter per leaf, IN PLACE (the paged half of the deferred-insert
+    protocol). pool_k/v: [L, P, KV, page, Dh] or the int8 dicts;
+    k_news/v_news: [L, B, T, KV, Dh] (quantized here, at write time);
+    lengths: [B] — the first token's logical position. Masked/overflow
+    writes land on trash page 0. Returns the pools."""
+    page = split_kv(pool_k)[0].shape[3]
     L, B, T = k_news.shape[:3]
     phys, off = _write_targets(page_table, lengths, T, page, active)
 
-    def scatter(pool, news):
-        # Indexed view of pool[:, phys, :, off] is [B*T, L, KV, Dh].
-        pool[:, phys, :, off] = news.permute(1, 2, 0, 3, 4).reshape(
-            B * T, L, *news.shape[3:]).to(pool.dtype)
+    def put(side, news):
+        # Indexed view of pool[:, phys, :, off] is [B*T, L, KV(, Dh)].
+        new = news.permute(1, 2, 0, 3, 4).reshape(B * T, L,
+                                                  *news.shape[3:])
+        if isinstance(side, dict):
+            q, s = quantize_kv(new)
+            side["q"][:, phys, :, off] = q
+            side["s"][:, phys, :, 0, off] = s
+        else:
+            side[:, phys, :, off] = new.to(side.dtype)
 
-    scatter(pool_k, k_news)
-    scatter(pool_v, v_news)
+    put(pool_k, k_news)
+    put(pool_v, v_news)
     return pool_k, pool_v
 
 
-def gather_pages(layer_pages: torch.Tensor, page_table: torch.Tensor,
-                 max_seq: int) -> torch.Tensor:
+def gather_pages(layer_pages, page_table: torch.Tensor, max_seq: int):
     """Materialize the dense [B, KV, S, Dh] view of one layer's pool — the
-    plain versions' input; the kernels read the pool in place."""
+    plain versions' input; the kernels read the pool in place. An int8 dict
+    gathers per leaf: the [P, KV, 1, page] scales through their squeezed
+    view, back in the dense stored form [B, KV, 1, S]."""
+    if isinstance(layer_pages, dict):
+        s = gather_pages(layer_pages["s"][:, :, 0, :], page_table, max_seq)
+        return {"q": gather_pages(layer_pages["q"], page_table, max_seq),
+                "s": s[:, :, None, :]}
     KV, page = layer_pages.shape[1], layer_pages.shape[2]
     NP = page_table.shape[1]
     n_pages = min(NP, (max_seq + page - 1) // page)
-    picked = layer_pages[page_table[:, :n_pages].long()]  # [B, n, KV, page, Dh]
-    picked = picked.movedim(1, 2)                         # [B, KV, n, page, Dh]
+    picked = layer_pages[page_table[:, :n_pages].long()]  # [B, n, KV, page(, Dh)]
+    picked = picked.movedim(1, 2)                         # [B, KV, n, page(, Dh)]
     seq = picked.reshape(page_table.shape[0], KV, n_pages * page,
                          *picked.shape[4:])
     return seq[:, :, :max_seq]
 
 
-def _paged_reference_core(q: torch.Tensor, dense_k: torch.Tensor,
-                          dense_v: torch.Tensor, lengths: torch.Tensor,
-                          active: torch.Tensor | None, T: int):
-    """Causal attention of a chunk over a gathered dense view WITHOUT
-    re-inserting, in fp32 through the shared block update. q [B, T, H, Dh]
-    at positions lengths + t; dense_k/v [B, KV, S, Dh] → [B, T, H*Dh] in
-    q.dtype. GQA is grouped (queries [B, KV, G·T, Dh]), never repeated."""
-    B, _, H, Dh = q.shape
-    KV, S = dense_k.shape[1], dense_k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, T, KV, G, Dh).permute(0, 2, 3, 1, 4).reshape(
-        B, KV, G * T, Dh)
-    q_pos = lengths.long()[:, None] + torch.arange(T, device=q.device)
-    visible = (torch.arange(S, device=q.device)[None, None, :]
-               <= q_pos[:, :, None])                               # [B, T, S]
-    if active is not None:
-        visible = visible & active[:, None, None]
-    visible = visible[:, None].expand(B, G, T, S).reshape(B, 1, G * T, S)
-    m = torch.full((B, KV, G * T, 1), NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, KV, G * T, Dh), device=q.device)
-    m, l, acc = attend_block(qg, dense_k, dense_v, m, l, acc, visible)
-    out = acc / torch.where(l == 0.0, 1.0, l)
-    out = out.reshape(B, KV, G, T, Dh).permute(0, 3, 1, 2, 4)
-    return out.reshape(B, T, H * Dh).to(q.dtype)
+def dequant_gathered(d, dtype):
+    """A gathered pool side → its dense float view ``q · s`` (a float
+    tensor passes through): the JAX reference path's one copy of the int8
+    dequant. The plain versions and the kernels never build it — they apply
+    the scales to scores and probabilities."""
+    if isinstance(d, dict):
+        return d["q"].to(dtype) * d["s"].transpose(-1, -2).to(dtype)
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -165,16 +177,12 @@ def _paged_decode_plain(q, k_new, v_new, k_pages, v_pages, page_table,
     ``n_stale`` plus the self column, all in fp32 (the Pallas kernel
     accumulates P·V in fp32). Gathers pages up to the longest slot's last
     live one; a shorter slot's dead positions are masked out."""
-    B, H, Dh = q.shape
-    page, NP = k_pages.shape[2], page_table.shape[1]
-    n_max = int(n_stale.max()) if B else 0
+    page, NP = split_kv(k_pages)[0].shape[2], page_table.shape[1]
+    n_max = int(n_stale.max()) if q.shape[0] else 0
     S = min(NP, -(-n_max // page)) * page
-    dense_k = gather_pages(k_pages, page_table, S).float()
-    dense_v = gather_pages(v_pages, page_table, S).float()
-    out = dense_decode_attention(q[:, None].float(), k_new[:, None].float(),
-                                 v_new[:, None].float(), dense_k, dense_v,
-                                 n_stale)
-    return out.reshape(B, H * Dh).to(q.dtype)
+    k, ks = split_kv(gather_pages(k_pages, page_table, S))
+    v, vs = split_kv(gather_pages(v_pages, page_table, S))
+    return decode_core(q, k_new, v_new, k, v, n_stale, ks, vs)
 
 
 def _paged_prefill_plain(q, k_pages, v_pages, page_table, start):
@@ -182,88 +190,58 @@ def _paged_prefill_plain(q, k_pages, v_pages, page_table, start):
     the chunk over the pool (its own keys already inserted), keys limited to
     the table's reach and to the chunk's last query position."""
     B, T = q.shape[:2]
-    page, NP = k_pages.shape[2], page_table.shape[1]
+    page, NP = split_kv(k_pages)[0].shape[2], page_table.shape[1]
     last = int(start.max()) + T if B else 0
     S = min(NP * page, last)
-    dense_k = gather_pages(k_pages, page_table, S)
-    dense_v = gather_pages(v_pages, page_table, S)
-    return _paged_reference_core(q, dense_k, dense_v, start, None, T)
+    k, ks = split_kv(gather_pages(k_pages, page_table, S))
+    v, vs = split_kv(gather_pages(v_pages, page_table, S))
+    return causal_core(q, k, v, start, ks, vs)
 
 
 # ---------------------------------------------------------------------------
 # Wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-def _check_kernel_args(name: str, floats: dict, ints: dict) -> None:
-    """Device, dtype and contiguity checks before pointers go to a kernel:
-    one CUDA device for every operand, bf16 activations and pools, int32
-    tables, contiguous and 16-byte aligned (the kernels load 16 bytes a
-    thread)."""
-    dev = next(iter(floats.values())).device
-    for arg, t in {**floats, **ints}.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-    for arg, t in floats.items():
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
-                            f"bfloat16")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} is not 16-byte aligned")
-    for arg, t in ints.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: {arg} is {t.dtype}; expected int32")
-
-
-def _check_geometry(name: str, H: int, KV: int, Dh: int, pages_shape,
-                    page_table: torch.Tensor, B: int) -> None:
-    if Dh != _kernels.HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {Dh} unsupported; the kernel is "
-                         f"built for {_kernels.HEAD_DIM}")
-    if KV <= 0 or H % KV or (H // KV) not in _kernels.GROUP_SIZES:
-        raise ValueError(f"{name}: {H} query heads over {KV} KV heads; the "
-                         f"kernel takes groups of {_kernels.GROUP_SIZES}")
-    if len(pages_shape) != 4 or pages_shape[1] != KV or pages_shape[3] != Dh:
-        raise ValueError(f"{name}: pool shape {tuple(pages_shape)} does not "
-                         f"match KV={KV}, Dh={Dh}")
+def _check_table(name: str, page_table: torch.Tensor, B: int) -> None:
     if page_table.dim() != 2 or page_table.shape[0] != B:
         raise ValueError(f"{name}: page_table {tuple(page_table.shape)} "
                          f"does not match batch {B}")
 
 
 def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
-                           v_new: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           v_new: torch.Tensor, k_pages, v_pages,
+                           page_table: torch.Tensor,
                            n_stale: torch.Tensor) -> torch.Tensor:
     """Ragged single-token attention over the STALE page pool plus the new
     token (self column folded into the online-softmax init).
 
     q: [B, H, Dh] (RoPE applied); k_new/v_new: [B, KV, Dh];
-    k_pages/v_pages: [P, KV, page, Dh]; page_table: [B, NP] int32;
-    n_stale: [B] int32 (the query's position; 0 for a fresh or inactive
-    slot). Returns [B, H*Dh] in q.dtype.
+    k_pages/v_pages: [P, KV, page, Dh] or the int8 ``{"q","s"}`` dicts;
+    page_table: [B, NP] int32; n_stale: [B] int32 (the query's position; 0
+    for a fresh or inactive slot). Returns [B, H*Dh] in q.dtype.
     """
     if q.device.type == "cpu":
         return _paged_decode_plain(q, k_new, v_new, k_pages, v_pages,
                                    page_table, n_stale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+    name = "paged_decode_attention"
     B, H, Dh = q.shape
     KV = k_new.shape[1]
-    _check_geometry("paged_decode_attention", H, KV, Dh, k_pages.shape,
-                    page_table, B)
+    kq = split_kv(k_pages)[0]
+    check_geometry(name, H, KV, Dh, kq.shape)
+    _check_table(name, page_table, B)
     if k_new.shape != (B, KV, Dh) or v_new.shape != (B, KV, Dh) \
-            or v_pages.shape != k_pages.shape or n_stale.shape != (B,):
-        raise ValueError("paged_decode_attention: operand shapes disagree")
-    _check_kernel_args(
-        "paged_decode_attention",
-        {"q": q, "k_new": k_new, "v_new": v_new, "k_pages": k_pages,
-         "v_pages": v_pages},
-        {"page_table": page_table, "n_stale": n_stale})
+            or split_kv(v_pages)[0].shape != kq.shape \
+            or n_stale.shape != (B,):
+        raise ValueError(f"{name}: operand shapes disagree")
+    quant = check_kernel_args(name, {"q": q, "k_new": k_new, "v_new": v_new},
+                              {"k_pages": k_pages, "v_pages": v_pages},
+                              {"page_table": page_table, "n_stale": n_stale})
     out = torch.empty((B, H * Dh), dtype=q.dtype, device=q.device)
-    _kernels.launch_decode(q, k_new, v_new, k_pages, v_pages, page_table,
-                           n_stale, out)
+    _kernels.launch_paged_decode(q, k_new, v_new, split_kv(k_pages),
+                                 split_kv(v_pages), quant, page_table,
+                                 n_stale, out)
     paged_decode_attention.launches += 1
     return out
 
@@ -271,32 +249,34 @@ def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
 paged_decode_attention.launches = 0
 
 
-def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                            v_pages: torch.Tensor, page_table: torch.Tensor,
+def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
+                            page_table: torch.Tensor,
                             start: torch.Tensor) -> torch.Tensor:
     """Causal chunk attention over the page pool (keys already inserted).
 
     q: [B, T, H, Dh] at absolute positions ``start + t`` (any T: the kernel
     masks the ragged tail of its last query tile); k_pages/v_pages:
-    [P, KV, page, Dh]; page_table: [B, NP] int32; start: [B] int32.
-    Returns [B, T, H*Dh] in q.dtype.
+    [P, KV, page, Dh] or the int8 dicts; page_table: [B, NP] int32; start:
+    [B] int32. Returns [B, T, H*Dh] in q.dtype.
     """
     if q.device.type == "cpu":
         return _paged_prefill_plain(q, k_pages, v_pages, page_table, start)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: no kernel for {q.device}")
+    name = "paged_prefill_attention"
     B, T, H, Dh = q.shape
-    KV = k_pages.shape[1]
-    _check_geometry("paged_prefill_attention", H, KV, Dh, k_pages.shape,
-                    page_table, B)
-    if v_pages.shape != k_pages.shape or start.shape != (B,):
-        raise ValueError("paged_prefill_attention: operand shapes disagree")
-    _check_kernel_args(
-        "paged_prefill_attention",
-        {"q": q, "k_pages": k_pages, "v_pages": v_pages},
-        {"page_table": page_table, "start": start})
+    kq = split_kv(k_pages)[0]
+    KV = kq.shape[1]
+    check_geometry(name, H, KV, Dh, kq.shape)
+    _check_table(name, page_table, B)
+    if split_kv(v_pages)[0].shape != kq.shape or start.shape != (B,):
+        raise ValueError(f"{name}: operand shapes disagree")
+    quant = check_kernel_args(name, {"q": q},
+                              {"k_pages": k_pages, "v_pages": v_pages},
+                              {"page_table": page_table, "start": start})
     out = torch.empty((B, T, H * Dh), dtype=q.dtype, device=q.device)
-    _kernels.launch_prefill(q, k_pages, v_pages, page_table, start, out)
+    _kernels.launch_paged_prefill(q, split_kv(k_pages), split_kv(v_pages),
+                                  quant, page_table, start, out)
     paged_prefill_attention.launches += 1
     return out
 
