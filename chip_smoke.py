@@ -12,35 +12,51 @@ Phases, each printed as JSON lines:
              compiled for sm_90a, one ``nvcc`` per source, all started
              together (build time, and ptxas's registers, shared memory
              and spills per kernel).
-3. kernel  — each kernel's wrapper against its plain PyTorch version on the
-             same card tensors at the main path's shapes (llama-3-8b heads):
-             the paged kernels over a page pool, the flash kernels over a
-             contiguous cache [8, 8, 4096, 128], each with a bf16 cache and
-             with an int8 cache and its fp32 scales. Per-element error
-             against the fp32 plain output under the stated relative +
-             absolute tolerance, and times (CUDA events, median of 25 runs
-             with L2 flushed before each) beside the plain version, one
-             library call on the dense view (``scaled_dot_product_attention``
-             on bf16 K/V; timed only — the port never calls it; no library
+3. kernel  — each kernel body's wrapper against its plain PyTorch version
+             on the same card tensors at the main path's shapes: the paged
+             kernels over a page pool, the flash kernels over a contiguous
+             cache, each with a bf16 cache and with an int8 cache and its
+             fp32 scales; full attention at llama-3-8b heads, the window
+             variants at mistral-7b (window 4096 over 8192 positions) and
+             phi-3-mini (MHA, 96-wide heads, window 2047) heads over a
+             ring-like table
+             whose pages below the window are the trash page, and the
+             multi-page variants (pages_per_block 2 and 4) on a packed,
+             shuffled table, each bit-for-bit the per-page kernel's output.
+             Per-element error against the fp32 plain output under the
+             stated relative + absolute tolerance, and times (CUDA events,
+             median of 25 runs with L2 flushed before each) beside the plain
+             version, one library call on the dense view
+             (``scaled_dot_product_attention`` on bf16 K/V with a causal or
+             banded mask; timed only — the port never calls it; no library
              call takes int8 K/V with per-key scales) and the least time the
-             card could take. Then every group size the kernels are built
-             for, held the same way, for every kernel body.
-4. model   — a two-layer model of llama-3-8b head geometry through the
+             card could take for the keys the kernel must read. Then every
+             group size and head width the kernels are built for, with and
+             without a window, held the same way, for every kernel body.
+4. model   — two-layer models of llama-3-8b head geometry through the
              port's forward on the card (kernels) against the same weights
              through the plain path on the CPU in fp32, on both layouts and
-             both cache types; and the LM head at llama-3-8b's shape, which
-             must give fp32 logits equal to the fp32 product of its bf16
-             operands.
-5. serve   — the port's aiohttp app in-process on a local port with the
-             llama-3-8b config (full width, random weights from a seed),
-             once per served configuration: contiguous bf16 KV, contiguous
-             int8 KV, paged int8 KV and paged bf16 KV, each engine stopped
+             both cache types; the same with tiny-mistral-test's window (16)
+             over 16-token pages; a packed pool read two pages a run; and
+             the LM head at llama-3-8b's shape, which must give fp32 logits
+             equal to the fp32 product of its bf16 operands.
+5. serve   — the port's aiohttp app in-process on a local port, once per
+             served configuration (SERVE_RUNS): llama-3-8b on both layouts
+             and cache types and with two- and four-page blocks, mistral-7b
+             (contiguous; paged through the SWA page ring; paged with
+             multi-page blocks over a context the ring would not shrink)
+             and phi-3-mini (int8, the same three ways), each at full width
+             and depth with random weights from a seed, each engine stopped
              and its memory freed before the next is built. 2 SSE + 2 JSON
-             concurrent requests whose prompts cross a KV page and a prefill
-             chunk. Launch counters are zeroed just before each run and read
-             just after: the layout's kernels must have run once per layer
-             per forward of their kind (a one-token prefill call runs the
-             decode kernel), the other layout's not at all.
+             concurrent requests, all admitted in the engine's first step.
+             Launch counters are zeroed just before each run and read just
+             after: the layout's kernels must have run their configured body
+             (window, pages per block) once per layer per forward of their
+             kind (a one-token prefill call runs the decode kernel), and no
+             other body or layout's kernel at all. On the ring runs the ring
+             rotates in prefill and in decode, no slot ever holds more than
+             the ring, and every page comes back. Pairs of runs that read
+             the same values in the same order must stream the same text.
 6. the ``kernels`` line, the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
@@ -78,10 +94,12 @@ BF16_FLOPS_PER_S = 989e12
 # that drops or mis-masks a key there is off by well over 2^-8.
 KERNEL_RTOL = 2.0 ** -8
 KERNEL_ATOL = 2.0 ** -14
-# Decode groups (query heads per KV head) the kernels are built for, each
-# held to the plain version at H 32 and a batch of long and short slots.
+# Decode groups (query heads per KV head) and head widths the kernels are
+# built for, each held to the plain version at H 32 and a batch of long and
+# short slots, with full attention and with a window that is no multiple of
+# the key tile or the page.
 GROUP_CASES = dict(B=4, H=32, n_stale=[0, 257, 1000, 4095], T=100,
-                   starts=[0, 1000])
+                   starts=[0, 1000], windows=[0, 700])
 # LM head: fp32 logits from bf16 operands, against the fp32 product of the
 # same values; a bf16 rounding of the logits (2^-9 of the largest) fails.
 HEAD_REL_TOL = 2.0 ** -12
@@ -90,30 +108,145 @@ HEAD_REL_TOL = 2.0 ** -12
 # largest reference logit.
 MODEL_REL_TOL = 5e-2
 
-DECODE = dict(B=8, H=32, KV=8, Dh=128, page=256, NP=16, S=4096,
-              n_stale=[0, 1, 255, 256, 257, 1000, 2047, 4095])
-PREFILL = dict(H=32, KV=8, Dh=128, page=256, NP=16, S=4096,
-               starts=[0, 256, 1000], T=(512, 300))
+# Kernel shapes, by model: the decode case and the prefill case. llama-3-8b
+# is the full-attention main path of PRs 1-2; mistral-7b and phi-3-mini the
+# window variants (their serve runs below); n_stale and starts sit around
+# the window and past it.
+SHAPES = {
+    "llama-3-8b": (
+        dict(B=8, H=32, KV=8, Dh=128, page=256, NP=16, S=4096, window=0,
+             n_stale=[0, 1, 255, 256, 257, 1000, 2047, 4095]),
+        dict(H=32, KV=8, Dh=128, page=256, NP=16, S=4096, window=0,
+             starts=[0, 256, 1000], T=(512, 300))),
+    "mistral-7b": (
+        dict(B=8, H=32, KV=8, Dh=128, page=256, NP=32, S=8192, window=4096,
+             n_stale=[0, 1, 4095, 4096, 4097, 6000, 8000, 8191]),
+        dict(H=32, KV=8, Dh=128, page=256, NP=32, S=8192, window=4096,
+             starts=[0, 4000, 6000], T=(512, 300))),
+    "phi-3-mini": (
+        dict(B=8, H=32, KV=32, Dh=96, page=256, NP=16, S=4096, window=2047,
+             n_stale=[0, 1, 2046, 2047, 2048, 3000, 3500, 4095]),
+        dict(H=32, KV=32, Dh=96, page=256, NP=16, S=4096, window=2047,
+             starts=[0, 2000, 3500], T=(512,))),
+}
+# The multi-page bodies (pages_per_block 2 and 4) of the paged kernels, on a
+# table packed for 4: at llama-3-8b shape and at mistral-7b's windowed one.
+PPB_SHAPES = ("llama-3-8b", "mistral-7b")
+PPBS = (2, 4)
 LIBRARY_NONE = ("no single PyTorch call takes int8 K/V with per-key fp32 "
                 "scales")
-# The served configurations, in order. Weights (16 GB) and KV cache live on
-# the card one engine at a time.
-SERVE_BASE = {"preset": "llama-3-8b", "max_batch_size": 8,
-              "max_seq_len": 4096, "prefill_chunk": 512, "mesh": {}}
-SERVE_CONFIGS = [
-    ("contiguous-bf16", {"kv_layout": "contiguous", "kv_quant": ""}),
-    ("contiguous-int8", {"kv_layout": "contiguous", "kv_quant": "int8"}),
-    ("paged-int8", {"kv_layout": "paged", "kv_page_size": 256,
-                    "kv_pages_per_block": 1, "prefix_cache": False,
-                    "kv_quant": "int8"}),
-    ("paged-bf16", {"kv_layout": "paged", "kv_page_size": 256,
-                    "kv_pages_per_block": 1, "prefix_cache": False,
-                    "kv_quant": ""}),
+
+# The served configurations, in order. Weights (14.5-16 GB) and KV cache
+# live on the card one engine at a time. mistral-7b's 32768-token context
+# is cut to 8192 (the window is 4096; 8192 positions hold prompts past the
+# window and past the ring), and to 5120 (phi-3-mini's 4096 to 3072) for
+# the multi-page runs below; every width and depth is the preset's.
+LLAMA = {"preset": "llama-3-8b", "max_batch_size": 8, "max_seq_len": 4096,
+         "prefill_chunk": 512, "mesh": {}}
+MISTRAL = {"preset": "mistral-7b", "max_batch_size": 8, "max_seq_len": 8192,
+           "prefill_chunk": 512, "mesh": {}}
+PHI3 = {"preset": "phi-3-mini", "max_batch_size": 8, "max_seq_len": 4096,
+        "prefill_chunk": 512, "mesh": {}}
+PAGED = {"kv_layout": "paged", "kv_page_size": 256}
+# The SWA ring's size (engine._init_state, the JAX engine's formula):
+# ceil((window + decode_burst + max(prefill_chunk, decode_burst)) / page) + 2
+# — 21 pages for mistral-7b, 13 for phi-3-mini. Each paged ring run's pool
+# holds B rings and the trash page, below B whole contexts.
+MISTRAL_RING, PHI3_RING = 21, 13
+# Prompt lengths: llama in bytes (one token each, plus the chat template's
+# ~25): one within a page, one across a page, two across a prefill chunk.
+# mistral-7b and phi-3-mini in prompt tokens: one inside the window, two
+# past it, and one past the ring that ends 16 tokens below a page boundary,
+# so the ring rotates in prefill and again when decode crosses the page.
+LLAMA_PROMPT_CHARS = (40, 300, 700, 1100)
+MISTRAL_PROMPT_TOKENS = (1500, 4600, 5200, 24 * 256 - 16)
+PHI3_PROMPT_TOKENS = (600, 2300, 2900, 15 * 256 - 16)
+# The window with multi-page blocks: the JAX engine's rule keeps per-page
+# blocks under the ring, so these runs hold contexts whose ring would not
+# be smaller than a slot (mistral-7b 5120 positions = 20 pages < 21;
+# phi-3-mini 3072 = 12 < 13) — prompts still past the window.
+MISTRAL_PPB = {**MISTRAL, "max_seq_len": 5120}
+PHI3_PPB = {**PHI3, "max_seq_len": 3072}
+MISTRAL_PPB_PROMPT_TOKENS = (1500, 4200, 4600, 5000)
+PHI3_PPB_PROMPT_TOKENS = (600, 2100, 2500, 3000)
+SERVE_RUNS = [  # (tag, engine config, prompts: ("chars"|"tokens", lengths))
+    ("contiguous-bf16", {**LLAMA, "kv_layout": "contiguous", "kv_quant": ""},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("contiguous-int8", {**LLAMA, "kv_layout": "contiguous",
+                         "kv_quant": "int8"}, ("chars", LLAMA_PROMPT_CHARS)),
+    ("paged-int8", {**LLAMA, **PAGED, "kv_pages_per_block": 1,
+                    "prefix_cache": False, "kv_quant": "int8"},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("paged-bf16", {**LLAMA, **PAGED, "kv_pages_per_block": 1,
+                    "prefix_cache": False, "kv_quant": ""},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("llama-paged-bf16-ppb2", {**LLAMA, **PAGED, "kv_pages_per_block": 2,
+                               "prefix_cache": False, "kv_quant": ""},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("mistral-contiguous-bf16", {**MISTRAL, "kv_layout": "contiguous",
+                                 "kv_quant": ""},
+     ("tokens", MISTRAL_PROMPT_TOKENS)),
+    # prefix_cache stays at its default true: inert for a sliding-window
+    # model, as in the JAX engine.
+    ("mistral-paged-bf16-ring", {**MISTRAL, **PAGED, "kv_quant": "",
+                                 "kv_num_pages": 8 * MISTRAL_RING + 1},
+     ("tokens", MISTRAL_PROMPT_TOKENS)),
+    ("phi3-contiguous-int8", {**PHI3, "kv_layout": "contiguous",
+                              "kv_quant": "int8"},
+     ("tokens", PHI3_PROMPT_TOKENS)),
+    ("phi3-paged-int8-ring", {**PHI3, **PAGED, "kv_quant": "int8",
+                              "kv_num_pages": 8 * PHI3_RING + 1},
+     ("tokens", PHI3_PROMPT_TOKENS)),
+    # Every other multi-page body of the kernel phase on a served path.
+    *[(f"llama-paged-{kv or 'bf16'}-ppb{ppb}",
+       {**LLAMA, **PAGED, "kv_pages_per_block": ppb, "prefix_cache": False,
+        "kv_quant": kv}, ("chars", LLAMA_PROMPT_CHARS))
+      for kv, ppb in (("", 4), ("int8", 2), ("int8", 4))],
+    *[(f"mistral-paged-bf16-ppb{ppb}",
+       {**MISTRAL_PPB, **PAGED, "kv_pages_per_block": ppb, "kv_quant": ""},
+       ("tokens", MISTRAL_PPB_PROMPT_TOKENS)) for ppb in PPBS],
+    *[(f"phi3-paged-int8-ppb{ppb}",
+       {**PHI3_PPB, **PAGED, "kv_pages_per_block": ppb, "kv_quant": "int8"},
+       ("tokens", PHI3_PPB_PROMPT_TOKENS)) for ppb in PPBS],
 ]
 SERVE_MAX_TOKENS = 32
-# Prompt lengths in bytes (one token each, plus the chat template's ~25):
-# one within a page, one across a page, two across a prefill chunk.
-SERVE_PROMPT_CHARS = (40, 300, 700, 1100)
+# Pairs of runs that read the same values in the same order (the layouts'
+# kernels walk the same key tiles; the two-page body reads the per-page
+# body's keys), so with the same admissions they stream the same text.
+SAME_TEXT = [("mistral-contiguous-bf16", "mistral-paged-bf16-ring"),
+             ("phi3-contiguous-int8", "phi3-paged-int8-ring"),
+             ("paged-bf16", "llama-paged-bf16-ppb2"),
+             ("paged-bf16", "llama-paged-bf16-ppb4"),
+             ("paged-int8", "llama-paged-int8-ppb2"),
+             ("paged-int8", "llama-paged-int8-ppb4"),
+             ("mistral-paged-bf16-ppb2", "mistral-paged-bf16-ppb4"),
+             ("phi3-paged-int8-ppb2", "phi3-paged-int8-ppb4")]
+FREED_BYTES_MAX = 2 ** 30
+# The serve run whose traffic drives each kernel body, by (layout, kv,
+# variant).
+SERVE_OF = {
+    ("paged", "bf16", "full"): "paged-bf16",
+    ("paged", "int8", "full"): "paged-int8",
+    ("contiguous", "bf16", "full"): "contiguous-bf16",
+    ("contiguous", "int8", "full"): "contiguous-int8",
+    **{("paged", kv, f"full_ppb{ppb}"): f"llama-paged-{kv}-ppb{ppb}"
+       for kv in ("bf16", "int8") for ppb in PPBS},
+    **{("paged", "bf16", f"window_ppb{ppb}"): f"mistral-paged-bf16-ppb{ppb}"
+       for ppb in PPBS},
+    **{("paged", "int8", f"window_ppb{ppb}"): f"phi3-paged-int8-ppb{ppb}"
+       for ppb in PPBS},
+    ("paged", "bf16", "window"): "mistral-paged-bf16-ring",
+    ("contiguous", "bf16", "window"): "mistral-contiguous-bf16",
+    ("paged", "int8", "window"): "phi3-paged-int8-ring",
+    ("contiguous", "int8", "window"): "phi3-contiguous-int8",
+}
+SOURCES = {"paged": "paged_attention.cu", "contiguous": "flash_attention.cu"}
+REPLACES = {
+    ("decode", "paged"): "llmapigateway_tpu/ops/paged_attention.py:272",
+    ("prefill", "paged"): "llmapigateway_tpu/ops/paged_attention.py:438",
+    ("decode", "contiguous"): "llmapigateway_tpu/ops/flash_attention.py:186",
+    ("prefill", "contiguous"): "llmapigateway_tpu/ops/flash_attention.py:329",
+}
 
 
 class SmokeFailure(Exception):
@@ -178,6 +311,19 @@ def kv_bytes_per_key(quant: bool, KV: int, Dh: int) -> int:
     return KV * (Dh + 4 if quant else Dh * 2) * 2
 
 
+def window_floor(q_pos: int, window: int) -> int:
+    """The first key position the query at ``q_pos`` sees (HF semantics:
+    key j visible iff q_pos - j < window; 0 = no window)."""
+    return max(q_pos - (window - 1), 0) if window else 0
+
+
+def variant_kw(layout: str, window: int, ppb: int) -> dict:
+    kw = {"window": window}
+    if layout == "paged":
+        kw["pages_per_block"] = ppb
+    return kw
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -190,33 +336,43 @@ def quantized(torch, x):
     return {"q": q, "s": s[:, :, None, :].contiguous()}
 
 
-def _pool_and_table(torch, gen, B, KV, Dh, page, NP, live_pages, quant):
-    """A pool with page 0 (trash) filled with a large finite value, and a
-    shuffled page table whose entries past each slot's live pages are 0 — a
-    kernel that reads the trash page for a live key, or a dead page, shows
-    up in the error. int8: the pool quantized, trash at q 127, scale 1e3."""
-    P = B * NP + 1
+def _pool_and_table(torch, gen, B, KV, Dh, page, NP, live_pages, quant,
+                    first_pages=None, packed=0):
+    """A pool whose trash page 0 (with ``packed``, the whole trash run of
+    that many pages) is filled with a large finite value, and a shuffled
+    page table whose entries past each slot's live pages — and below
+    ``first_pages``, as the SWA ring leaves them — are 0: a kernel that
+    reads the trash page for a live key, or a dead page, shows up in the
+    error. ``packed``: the table maps aligned runs of that many logical
+    pages onto aligned runs of physical pages, runs shuffled, live pages
+    rounded up to whole runs (the superpage allocator's table). int8: the
+    pool quantized, trash at q 127, scale 1e3."""
+    run = max(packed, 1)
+    P = B * NP + run
     pools = []
     for _ in range(2):
         pool = torch.randn((P, KV, page, Dh), generator=gen, device="cuda"
                            ).to(torch.bfloat16)
-        pool[0] = 3e4
+        pool[:run] = 3e4
         if quant:
             pool = quantized(torch, pool)
-            pool["q"][0] = 127
-            pool["s"][0] = 1e3
+            pool["q"][:run] = 127
+            pool["s"][:run] = 1e3
         pools.append(pool)
-    perm = torch.randperm(B * NP, generator=gen, device="cuda") + 1
-    table = perm.reshape(B, NP).to(torch.int32)
+    runs = torch.randperm(B * NP // run, generator=gen, device="cuda") + 1
+    table = (runs.reshape(B, NP // run, 1) * run
+             + torch.arange(run, device="cuda")).reshape(B, NP).to(torch.int32)
     for b, n in enumerate(live_pages):
-        table[b, n:] = 0
+        table[b, -(-n // run) * run:] = 0
+        if first_pages is not None:
+            table[b, :first_pages[b]] = 0
     return pools[0], pools[1], table.contiguous()
 
 
 def _cache(torch, gen, B, KV, S, Dh, quant):
     """A contiguous cache layer [B, KV, S, Dh] of random values: positions
-    past a row's live keys hold values too, so a kernel that reads them
-    shows up in the error."""
+    past a row's live keys, and below its window, hold values too, so a
+    kernel that reads them shows up in the error."""
     c = torch.randn((B, KV, S, Dh), generator=gen, device="cuda").to(
         torch.bfloat16)
     return quantized(torch, c) if quant else c
@@ -240,14 +396,17 @@ def held(torch, name: str, got, ref) -> dict:
 
 
 def decode_inputs(torch, gen, layout, quant, B, H, KV, n_list, Dh=128,
-                  page=256, NP=16, S=4096):
-    """(wrapper args, dense K, dense V, live extent) of one decode case:
-    q, k_new, v_new, the cache (a page pool and its table, or a contiguous
-    layer), n_stale."""
+                  page=256, NP=16, S=4096, window=0, packed=0):
+    """The wrapper's positional args of one decode case: q, k_new, v_new,
+    the cache (a page pool and its table, or a contiguous layer), n_stale.
+    A windowed paged case maps no page wholly below a slot's window (the
+    ring's table); a packed one keeps every run up to the live pages."""
     if layout == "paged":
         live = [-(-n // page) for n in n_list]
+        first = (None if packed or not window else
+                 [window_floor(n, window) // page for n in n_list])
         k, v, table = _pool_and_table(torch, gen, B, KV, Dh, page, NP, live,
-                                      quant)
+                                      quant, first, packed)
         cache = (k, v, table)
     else:
         cache = (_cache(torch, gen, B, KV, S, Dh, quant),
@@ -260,12 +419,14 @@ def decode_inputs(torch, gen, layout, quant, B, H, KV, n_list, Dh=128,
 
 
 def prefill_inputs(torch, gen, layout, quant, T, H, KV, starts, Dh=128,
-                   page=256, NP=16, S=4096):
+                   page=256, NP=16, S=4096, window=0, packed=0):
     B = len(starts)
     if layout == "paged":
         live = [-(-(s + T) // page) for s in starts]
+        first = (None if packed or not window else
+                 [window_floor(s, window) // page for s in starts])
         k, v, table = _pool_and_table(torch, gen, B, KV, Dh, page, NP, live,
-                                      quant)
+                                      quant, first, packed)
         cache = (k, v, table)
     else:
         cache = (_cache(torch, gen, B, KV, S, Dh, quant),
@@ -296,6 +457,18 @@ class Kernels:
     def all_wrappers(self):
         return list(self.fn.values())
 
+    def call(self, kind, layout, args, window=0, ppb=1):
+        return self.fn[(kind, layout)](*args, **variant_kw(layout, window,
+                                                           ppb))
+
+    def call_plain(self, kind, layout, args, window=0):
+        """The plain version on the same args (fp32 floats); the contiguous
+        ones take ``rows`` before the window."""
+        fn = self.plain[(kind, layout)]
+        if layout == "paged":
+            return fn(*args, window)
+        return fn(*args, None, window)
+
 
 def _dense_view(ks, layout, side, table, S):
     """The bf16 dense [B, KV, S, Dh] view of one cache side (SDPA input)."""
@@ -304,25 +477,71 @@ def _dense_view(ks, layout, side, table, S):
     return side[:, :, :S]
 
 
-def check_decode(torch, ks, gen, layout, quant) -> dict:
-    d = DECODE
-    B, H, KV, Dh = d["B"], d["H"], d["KV"], d["Dh"]
+def row_name(ks, kind, layout, quant, shape, window, ppb) -> str:
+    name = (f"{ks.name(kind, layout)}{'_int8' if quant else ''}"
+            f"{'_window' if window else ''}{f'_ppb{ppb}' if ppb > 1 else ''}")
+    return name if shape == "llama-3-8b" else f"{name}[{shape}]"
+
+
+def _timed_rows(torch, ks, kind, layout, quant, shape, args, window, ppbs,
+                library_fn, n_bytes, n_flops, shape_info, tag=""):
+    """Run, hold and time the body of every ``ppb`` in ``ppbs`` on the same
+    inputs; a ppb > 1 body must also equal the ppb 1 body bit for bit.
+    Returns one result per ppb."""
+    ref = ks.call_plain(kind, layout, _fp32(args), window)
+    base = ks.call(kind, layout, args, window)
+    torch.cuda.synchronize()
+    library_ms = (cuda_ms(torch, library_fn) if library_fn is not None
+                  else None)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    out = []
+    for ppb in ppbs:
+        name = row_name(ks, kind, layout, quant, shape, window, ppb)
+        got = ks.call(kind, layout, args, window, ppb)
+        torch.cuda.synchronize()
+        err = held(torch, f"{name}{tag}", got, ref)
+        res = {"phase": "kernel", "name": name, "fn": ks.name(kind, layout),
+               "kind": kind, "layout": layout,
+               "kv": "int8" if quant else "bf16", "window": window,
+               "pages_per_block": ppb, "shape": shape_info, **err,
+               "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}
+        if ppb > 1:
+            res["equal_to_ppb1"] = bool(torch.equal(got, base))
+        res.update({
+            "ms": cuda_ms(torch, lambda: ks.call(kind, layout, args, window,
+                                                 ppb)),
+            "plain_ms": cuda_ms(torch, lambda: ks.call_plain(
+                kind, layout, args, window), iters=5),
+            "library_ms": library_ms,
+            **({"library_none": LIBRARY_NONE} if quant else {}),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": n_bytes})
+        emit(res)
+        check(err["max_err_over_tol"] <= 1.0,
+              f"{name}{tag} disagrees: {err}")
+        check(res.get("equal_to_ppb1", True),
+              f"{name}{tag}: the {ppb}-page body's output differs from the "
+              f"per-page body's on a packed table")
+        out.append(res)
+    return out
+
+
+def check_decode(torch, ks, gen, layout, quant, shape, ppbs=(1,)) -> list:
+    """The decode body at ``shape``'s decode case; ``ppbs`` other than
+    (1,): the multi-page bodies on a table packed for the largest."""
+    d = SHAPES[shape][0]
+    B, H, KV, Dh, window = d["B"], d["H"], d["KV"], d["Dh"], d["window"]
     n_list = d["n_stale"]
     args = decode_inputs(torch, gen, layout, quant, B, H, KV, n_list, Dh,
-                         d["page"], d["NP"], d["S"])
+                         d["page"], d["NP"], d["S"], window,
+                         packed=max(ppbs) if ppbs != (1,) else 0)
     q, k_new, v_new = args[:3]
     n_stale = args[-1]
-    fn, plain = ks.fn[("decode", layout)], ks.plain[("decode", layout)]
-    name = f"{fn.__name__}{'_int8' if quant else ''}"
-
-    got = fn(*args)
-    torch.cuda.synchronize()
-    err = held(torch, name, got, plain(*_fp32(args)))
-    kernel_ms = cuda_ms(torch, lambda: fn(*args))
-    plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
-    library_ms = None
+    w0 = [window_floor(n, window) for n in n_list]
+    library_fn = None
     if not quant:
-        # Library yardstick: SDPA over the dense stale view + self column.
+        # Library yardstick: SDPA over the dense stale view + self column,
+        # the window as a banded boolean mask.
         S = (max(-(-n // d["page"]) for n in n_list) * d["page"]
              if layout == "paged" else max(n_list))
         table = args[5] if layout == "paged" else None
@@ -330,139 +549,141 @@ def check_decode(torch, ks, gen, layout, quant) -> dict:
         dv = _dense_view(ks, layout, args[4], table, S)
         k_all = torch.cat([dk, k_new[:, :, None]], dim=2)
         v_all = torch.cat([dv, v_new[:, :, None]], dim=2)
-        pos = torch.arange(S + 1, device="cuda")
-        mask = ((pos[None, :] < n_stale[:, None]) | (pos[None, :] == S))[
+        pos = torch.arange(S + 1, device="cuda")[None, :]
+        lo = torch.tensor(w0, device="cuda")[:, None]
+        mask = (((pos < n_stale[:, None]) & (pos >= lo)) | (pos == S))[
             :, None, None, :]
-        library_ms = cuda_ms(torch, lambda: sdpa(torch, q[:, :, None], k_all,
-                                                 v_all, mask))
-    tokens = sum(n_list)
+
+        def library_fn():
+            return sdpa(torch, q[:, :, None], k_all, v_all, mask)
+    # The keys the kernel must read: each slot's in-window stale keys.
+    tokens = sum(n - lo for n, lo in zip(n_list, w0))
     index_bytes = sum(a.nbytes for a in args[5:] if hasattr(a, "nbytes"))
-    n_bytes = (q.nbytes + k_new.nbytes + v_new.nbytes + got.nbytes
+    out_bytes = B * H * Dh * 2
+    n_bytes = (q.nbytes + k_new.nbytes + v_new.nbytes + out_bytes
                + index_bytes + tokens * kv_bytes_per_key(quant, KV, Dh))
     n_flops = B * H * (tokens / B + 1) * Dh * 4
-    bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"phase": "kernel", "name": name, "layout": layout,
-           "kv": "int8" if quant else "bf16",
-           "shape": {"B": B, "H": H, "KV": KV, "Dh": Dh,
-                     **({"page": d["page"], "NP": d["NP"]}
-                        if layout == "paged" else {"S": d["S"]}),
-                     "n_stale": n_list},
-           **err, "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           **({"library_none": LIBRARY_NONE} if quant else {}),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "live_kv_bytes": tokens * kv_bytes_per_key(quant, KV, Dh)}
-    emit(res)
-    check(err["max_err_over_tol"] <= 1.0, f"{name} disagrees: {err}")
-    return res
+    info = {"B": B, "H": H, "KV": KV, "Dh": Dh, "window": window,
+            **({"page": d["page"], "NP": d["NP"]} if layout == "paged"
+               else {"S": d["S"]}), "n_stale": n_list}
+    return _timed_rows(torch, ks, "decode", layout, quant, shape, args,
+                       window, ppbs, library_fn, n_bytes, n_flops, info)
 
 
-def check_prefill(torch, ks, gen, layout, quant, T: int) -> dict:
-    d = PREFILL
-    H, KV, Dh = d["H"], d["KV"], d["Dh"]
+def check_prefill(torch, ks, gen, layout, quant, shape, T: int,
+                  ppbs=(1,)) -> list:
+    d = SHAPES[shape][1]
+    H, KV, Dh, window = d["H"], d["KV"], d["Dh"], d["window"]
     starts = d["starts"]
     B = len(starts)
     args = prefill_inputs(torch, gen, layout, quant, T, H, KV, starts, Dh,
-                          d["page"], d["NP"], d["S"])
+                          d["page"], d["NP"], d["S"], window,
+                          packed=max(ppbs) if ppbs != (1,) else 0)
     q, start = args[0], args[-1]
-    fn, plain = ks.fn[("prefill", layout)], ks.plain[("prefill", layout)]
-    name = f"{fn.__name__}{'_int8' if quant else ''}"
-
-    got = fn(*args)
-    torch.cuda.synchronize()
-    err = held(torch, f"{name} T={T}", got, plain(*_fp32(args)))
-    kernel_ms = cuda_ms(torch, lambda: fn(*args))
-    plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
-    library_ms = None
+    library_fn = None
     if not quant:
         S = max(starts) + T
         table = args[3] if layout == "paged" else None
         dk = _dense_view(ks, layout, args[1], table, S)
         dv = _dense_view(ks, layout, args[2], table, S)
         q_pos = start[:, None] + torch.arange(T, device="cuda")[None, :]
-        mask = (torch.arange(S, device="cuda")[None, None, :]
-                <= q_pos[:, :, None])[:, None]
+        s_pos = torch.arange(S, device="cuda")[None, None, :]
+        mask = s_pos <= q_pos[:, :, None]
+        if window:
+            mask = mask & (s_pos > q_pos[:, :, None] - window)
+        mask = mask[:, None]
         qh = q.transpose(1, 2)
-        library_ms = cuda_ms(torch, lambda: sdpa(torch, qh, dk, dv, mask))
-    keys = sum(s + T for s in starts)
+
+        def library_fn():
+            return sdpa(torch, qh, dk, dv, mask)
+    # Keys the kernel must read: from the first query's window floor to the
+    # chunk's end, per slot; each query t sees min(start + t + 1, window)
+    # of them (QK and PV, 2 flops per multiply-add, per head).
+    keys = sum(s + T - window_floor(s, window) for s in starts)
     index_bytes = sum(a.nbytes for a in args[3:] if hasattr(a, "nbytes"))
-    n_bytes = (q.nbytes + got.nbytes + index_bytes
+    n_bytes = (q.nbytes * 2 + index_bytes
                + keys * kv_bytes_per_key(quant, KV, Dh))
-    # Each query t of slot b sees start_b + t + 1 keys: QK and PV, 2 flops
-    # per multiply-add, per head.
-    n_flops = sum(H * Dh * 4 * (T * (s + 1) + T * (T - 1) / 2)
-                  for s in starts)
-    bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"phase": "kernel", "name": name, "layout": layout,
-           "kv": "int8" if quant else "bf16",
-           "shape": {"B": B, "T": T, "H": H, "KV": KV, "Dh": Dh,
-                     **({"page": d["page"], "NP": d["NP"]}
-                        if layout == "paged" else {"S": d["S"]}),
-                     "start": starts},
-           **err, "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           **({"library_none": LIBRARY_NONE} if quant else {}),
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    emit(res)
-    check(err["max_err_over_tol"] <= 1.0, f"{name} (T={T}) disagrees: {err}")
-    return res
+    seen = sum(min(s + t + 1, window) if window else s + t + 1
+               for s in starts for t in range(T))
+    n_flops = H * Dh * 4 * seen
+    info = {"B": B, "T": T, "H": H, "KV": KV, "Dh": Dh, "window": window,
+            **({"page": d["page"], "NP": d["NP"]} if layout == "paged"
+               else {"S": d["S"]}), "start": starts}
+    return _timed_rows(torch, ks, "prefill", layout, quant, shape, args,
+                       window, ppbs, library_fn, n_bytes, n_flops, info,
+                       tag=f" T={T}")
 
 
-def check_groups(torch, ks, group_sizes, gen) -> list[dict]:
-    """Every group size the kernels are built for (H 32 over H/G KV heads),
-    every kernel body (paged and contiguous, bf16 and int8, decode and
-    prefill), held to the plain versions. Not timed."""
+def check_groups(torch, ks, group_sizes, head_dims, gen) -> list[dict]:
+    """Every group size (H 32 over H/G KV heads) and head width the kernels
+    are built for, every kernel body (paged and contiguous, bf16 and int8,
+    decode and prefill, full and windowed), held to the plain versions. Not
+    timed."""
     c = GROUP_CASES
     H = c["H"]
     rows = []
-    for G in group_sizes:
-        KV = H // G
-        for layout in ("paged", "contiguous"):
-            for quant in (False, True):
-                dargs = decode_inputs(torch, gen, layout, quant, c["B"], H,
-                                      KV, c["n_stale"])
-                pargs = prefill_inputs(torch, gen, layout, quant, c["T"], H,
-                                       KV, c["starts"])
-                tag = f"{layout} {'int8' if quant else 'bf16'} G={G}"
-                rows.append({
-                    "G": G, "KV": KV, "layout": layout,
-                    "kv": "int8" if quant else "bf16",
-                    "decode": held(torch, f"decode {tag}",
-                                   ks.fn[("decode", layout)](*dargs),
-                                   ks.plain[("decode", layout)](
-                                       *_fp32(dargs))),
-                    "prefill": held(torch, f"prefill {tag}",
-                                    ks.fn[("prefill", layout)](*pargs),
-                                    ks.plain[("prefill", layout)](
-                                        *_fp32(pargs)))})
+    for Dh in head_dims:
+        for G in group_sizes:
+            KV = H // G
+            for layout in ("paged", "contiguous"):
+                for quant in (False, True):
+                    for window in c["windows"]:
+                        rows.append(_group_case(torch, ks, gen, c, Dh, G, KV,
+                                                layout, quant, window))
     emit({"phase": "groups", "shape": c, "rtol": KERNEL_RTOL,
           "atol": KERNEL_ATOL, "groups": rows})
     for r in rows:
         for k in ("decode", "prefill"):
             check(r[k]["max_err_over_tol"] <= 1.0,
                   f"{k} kernel disagrees at {r['layout']} {r['kv']} "
-                  f"G={r['G']}: {r[k]}")
+                  f"Dh={r['Dh']} G={r['G']} window={r['window']}: {r[k]}")
     return rows
 
 
-def kernel_phase(torch, ks, gen) -> dict:
-    """Phase 3: every kernel body at the main path's shapes, then every
-    group size. Returns {(kind, layout, quant): [results]}."""
-    out = {}
-    for layout in ("paged", "contiguous"):
+def _group_case(torch, ks, gen, c, Dh, G, KV, layout, quant, window):
+    H = c["H"]
+    dargs = decode_inputs(torch, gen, layout, quant, c["B"], H, KV,
+                          c["n_stale"], Dh, window=window)
+    pargs = prefill_inputs(torch, gen, layout, quant, c["T"], H, KV,
+                           c["starts"], Dh, window=window)
+    tag = (f"{layout} {'int8' if quant else 'bf16'} Dh={Dh} G={G} "
+           f"window={window}")
+    return {"Dh": Dh, "G": G, "KV": KV, "layout": layout, "window": window,
+            "kv": "int8" if quant else "bf16",
+            "decode": held(torch, f"decode {tag}",
+                           ks.call("decode", layout, dargs, window),
+                           ks.call_plain("decode", layout, _fp32(dargs),
+                                         window)),
+            "prefill": held(torch, f"prefill {tag}",
+                            ks.call("prefill", layout, pargs, window),
+                            ks.call_plain("prefill", layout, _fp32(pargs),
+                                          window))}
+
+
+def kernel_phase(torch, ks, gen) -> list[dict]:
+    """Phase 3: every kernel body at the main path's shapes — full
+    attention, both window shapes, the multi-page bodies — then every group
+    size and head width. Returns the timed rows."""
+    rows = []
+    for shape in SHAPES:
+        for layout in ("paged", "contiguous"):
+            for quant in (False, True):
+                rows += check_decode(torch, ks, gen, layout, quant, shape)
+                for T in SHAPES[shape][1]["T"]:
+                    rows += check_prefill(torch, ks, gen, layout, quant,
+                                          shape, T)
+    for shape in PPB_SHAPES:
         for quant in (False, True):
-            out[("decode", layout, quant)] = [
-                check_decode(torch, ks, gen, layout, quant)]
-            out[("prefill", layout, quant)] = [
-                check_prefill(torch, ks, gen, layout, quant, T)
-                for T in PREFILL["T"]]
+            rows += check_decode(torch, ks, gen, "paged", quant, shape, PPBS)
+            rows += check_prefill(torch, ks, gen, "paged", quant, shape,
+                                  SHAPES[shape][1]["T"][0], PPBS)
     from llmapigateway_tpu_torch.ops import _kernels
-    check_groups(torch, ks, _kernels.GROUP_SIZES, gen)
-    return out
+    check_groups(torch, ks, _kernels.GROUP_SIZES, _kernels.HEAD_DIMS, gen)
+    return rows
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: a small model of the main path's head geometry, card vs CPU
+# Phase 4: small models of the main path's head geometry, card vs CPU
 # ---------------------------------------------------------------------------
 
 def check_model(torch) -> dict:
@@ -474,29 +695,45 @@ def check_model(torch) -> dict:
     from llmapigateway_tpu_torch.ops.paged_attention import (
         PagedKVCache, make_paged_attention_fn)
 
-    cfg = ModelConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
-                      n_kv_heads=1, d_ff=1024, rope_theta=500000.0,
-                      max_seq_len=1024)                 # Dh 128, G 4
+    base = dict(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
+                n_kv_heads=1, d_ff=1024, rope_theta=500000.0,
+                max_seq_len=1024)                       # Dh 128, G 4
+    # (tag, config, page, pool pages, table, pages_per_block): the full-
+    # attention model over 256-token pages (PRs 1-2); tiny-mistral-test's
+    # window (16) at the kernels' head width over 16-token pages, so a
+    # window and a key tile straddle pages; the full model on a pool packed
+    # in runs of two pages read by the two-page body. A window of 16 needs
+    # no ring here: the table maps every page.
+    windowed = ModelConfig(**base, sliding_window=16)
     gen = torch.Generator(device="cpu").manual_seed(1)
-    params_cpu = init_params(cfg, gen, dtype=torch.bfloat16)
-    page, B, P = 256, 2, 9
-    table = torch.tensor([[3, 7, 0, 0], [5, 2, 8, 0]], dtype=torch.int32)
+    perm16 = (torch.randperm(2 * 20, generator=gen) + 1).reshape(2, 20)
+    models = [
+        ("", ModelConfig(**base), 256, 9,
+         torch.tensor([[3, 7, 0, 0], [5, 2, 8, 0]]), 1),
+        ("window16-", windowed, 16, 41, perm16, 1),
+        ("ppb2-", ModelConfig(**base), 256, 10,
+         torch.tensor([[4, 5, 0, 0], [8, 9, 2, 3]]), 2),
+    ]
+    B = 2
     prompt = torch.randint(0, 512, (B, 300), generator=gen)
     # Fixed decode inputs: both runs must see the same tokens.
     steps = torch.randint(0, 512, (4, B), generator=gen)
 
-    def run(device, dtype, layout, kv_quant):
+    def run(cfg, params_cpu, device, dtype, layout, kv_quant, page, P, table,
+            ppb):
         params = {k: ({n: w.to(device, dtype) for n, w in v.items()}
                       if isinstance(v, dict) else v.to(device, dtype))
                   for k, v in params_cpu.items()}
+        window = cfg.sliding_window
         if layout == "paged":
             cache = PagedKVCache.create(cfg, P, page, dtype, kv_quant,
                                         device=device)
-            attn = make_paged_attention_fn(table.to(device))
+            attn = make_paged_attention_fn(table.to(device, torch.int32),
+                                           window, ppb)
         else:
             cache = KVCache.create(cfg, B, 1024, dtype, kv_quant,
                                    device=device)
-            attn = make_cache_attention_fn()
+            attn = make_cache_attention_fn(window=window)
         lengths = torch.zeros(B, dtype=torch.int32, device=device)
         logits, cache = forward(params, cfg, prompt.to(device), lengths,
                                 cache, attention_fn=attn)
@@ -512,21 +749,28 @@ def check_model(torch) -> dict:
 
     rels = {}
     with torch.no_grad():
-        for layout in ("paged", "contiguous"):
-            for kv_quant in ("", "int8"):
-                got = run("cuda", torch.bfloat16, layout, kv_quant)
-                ref = run("cpu", torch.float32, layout, kv_quant)
-                tag = f"{layout}-{kv_quant or 'bf16'}"
-                check(bool(torch.isfinite(got).all()),
-                      f"model {tag}: non-finite logits")
-                check(got.shape == ref.shape == (5, B, cfg.vocab_size),
-                      f"model {tag}: logits shape {tuple(got.shape)}")
-                rels[tag] = ((got - ref).abs().max()
-                             / ref.abs().max()).item()
+        for prefix, cfg, page, P, table, ppb in models:
+            params_cpu = init_params(cfg, torch.Generator().manual_seed(1),
+                                     dtype=torch.bfloat16)
+            layouts = ("paged",) if ppb > 1 else ("paged", "contiguous")
+            quants = ("",) if ppb > 1 else ("", "int8")
+            for layout in layouts:
+                for kv_quant in quants:
+                    spec = (page, P, table, ppb)
+                    got = run(cfg, params_cpu, "cuda", torch.bfloat16,
+                              layout, kv_quant, *spec)
+                    ref = run(cfg, params_cpu, "cpu", torch.float32, layout,
+                              kv_quant, *spec)
+                    tag = f"{prefix}{layout}-{kv_quant or 'bf16'}"
+                    check(bool(torch.isfinite(got).all()),
+                          f"model {tag}: non-finite logits")
+                    check(got.shape == ref.shape == (5, B, cfg.vocab_size),
+                          f"model {tag}: logits shape {tuple(got.shape)}")
+                    rels[tag] = ((got - ref).abs().max()
+                                 / ref.abs().max()).item()
     head = check_head(torch)
-    res = {"phase": "model", "layers": cfg.n_layers, "prompt": 300,
-           "decode_steps": 4, "max_rel_err": rels, "tol": MODEL_REL_TOL,
-           "head": head}
+    res = {"phase": "model", "layers": 2, "prompt": 300, "decode_steps": 4,
+           "max_rel_err": rels, "tol": MODEL_REL_TOL, "head": head}
     emit(res)
     for tag, rel in rels.items():
         check(rel <= MODEL_REL_TOL, f"model logits disagree ({tag}): {rel}")
@@ -557,7 +801,7 @@ def check_head(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: serve /v1/chat/completions at llama-3-8b width, per configuration
+# Phase 5: serve /v1/chat/completions at full width, per configuration
 # ---------------------------------------------------------------------------
 
 def _free_port() -> int:
@@ -566,25 +810,77 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-async def _serve(torch, ks, card: str, tag: str, overrides: dict) -> dict:
+def _gate_first_step(engine, n_requests: int) -> None:
+    """Hold the engine's first scheduler step until all ``n_requests`` are
+    queued (30 s at most), so every run admits the same requests in one
+    step: the prefill groups, and with them cuBLAS's GEMM shapes, are then
+    the same in runs that must stream the same text."""
+    first = engine._step
+
+    async def gated():
+        t_end = time.monotonic() + 30
+        while (engine._queue.qsize() < n_requests
+               and time.monotonic() < t_end):
+            await asyncio.sleep(0.005)
+        engine._step = first
+        return await first()
+    engine._step = gated
+
+
+def _watch_ring(engine) -> dict:
+    """Record the ring on a paged engine: the most pages any table row ever
+    maps, and how often rotation changed the table before a prefill chunk
+    and before a decode burst."""
+    import numpy as np
+    alloc = engine.allocator
+    seen = {"max_row_pages": 0, "prefill_rotations": 0,
+            "decode_rotations": 0}
+
+    def note():
+        seen["max_row_pages"] = max(seen["max_row_pages"], int(
+            np.count_nonzero(alloc.table, axis=1).max()))
+
+    def wrap(obj, attr, after):
+        orig = getattr(obj, attr)
+
+        def wrapped(*a, **kw):
+            before = alloc.table.copy()
+            out = orig(*a, **kw)
+            after(before)
+            return out
+        setattr(obj, attr, wrapped)
+
+    wrap(alloc, "allocate", lambda _: note())
+    wrap(alloc, "ensure_mapped", lambda _: note())
+    for attr, key in (("_swa_map_chunks", "prefill_rotations"),
+                      ("_swa_rotate", "decode_rotations")):
+        wrap(engine, attr, lambda before, key=key: seen.__setitem__(
+            key, seen[key] + int((alloc.table != before).any())))
+    return seen
+
+
+async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
+                 prompt_spec) -> dict:
     import aiohttp
     from aiohttp import web
 
     from llmapigateway_tpu_torch.config.loader import ConfigLoader
     from llmapigateway_tpu_torch.config.settings import Settings
+    from llmapigateway_tpu_torch.ops.flash_attention import (
+        reset_launches, variant_name)
     from llmapigateway_tpu_torch.providers.local import make_local_provider
     from llmapigateway_tpu_torch.server.app import build_app
     from llmapigateway_tpu_torch.utils.sse import SSEParser
 
-    engine_cfg = {**SERVE_BASE, **overrides}
     layout = engine_cfg["kv_layout"]
+    model = engine_cfg["preset"]
     with tempfile.TemporaryDirectory() as cfg_dir:
         with open(os.path.join(cfg_dir, "providers.json"), "w") as f:
             json.dump([{"local": {"type": "local", "engine": engine_cfg}}], f)
         with open(os.path.join(cfg_dir, "models_fallback_rules.json"), "w") as f:
-            json.dump([{"gateway_model_name": "gw/llama",
+            json.dump([{"gateway_model_name": "gw/model",
                         "fallback_models": [{"provider": "local",
-                                             "model": "llama-3-8b"}]}], f)
+                                             "model": model}]}], f)
         settings = Settings(fallback_provider="local", config_dir=cfg_dir)
         app = build_app(settings, loader=ConfigLoader(cfg_dir, "local"),
                         local_factory=functools.partial(make_local_provider,
@@ -603,16 +899,24 @@ async def _serve(torch, ks, card: str, tag: str, overrides: dict) -> dict:
             torch.cuda.synchronize()
             build_s = time.monotonic() - t0
             n_layers = engine.model_cfg.n_layers
+            window = engine.model_cfg.sliding_window
             cache_kind = (f"{type(engine.cache).__name__}"
                           f"{'[int8]' if isinstance(engine.cache.k, dict) else ''}")
 
             words = ("the quick brown fox jumps over the lazy dog while "
                      "paged attention streams every live key once ")
-            prompts = [(words * 20)[:n] for n in SERVE_PROMPT_CHARS]
+            unit, lengths = prompt_spec
+            if unit == "tokens":
+                # Bytes for the wanted prompt lengths, less the chat
+                # template's and the tokenizer's own tokens.
+                overhead = len(provider._build_genrequest({"messages": [
+                    {"role": "user", "content": ""}]}).prompt_ids)
+                lengths = [n - overhead for n in lengths]
+            prompts = [(words * (n // len(words) + 1))[:n] for n in lengths]
             streams = [True, False, True, False]
 
             async def one(session, text, stream):
-                body = {"model": "gw/llama", "temperature": 0,
+                body = {"model": "gw/model", "temperature": 0,
                         "max_tokens": SERVE_MAX_TOKENS, "stream": stream,
                         "messages": [{"role": "user", "content": text}]}
                 async with session.post(
@@ -646,9 +950,11 @@ async def _serve(torch, ks, card: str, tag: str, overrides: dict) -> dict:
                     return {"usage": usage[0], "text": text,
                             "finish": finish[-1] if finish else None}
 
+            ring = _watch_ring(engine) if engine.paged else None
+            _gate_first_step(engine, len(prompts))
             # Zero every launch count just before driving the main path.
             for fn in ks.all_wrappers():
-                fn.launches = 0
+                reset_launches(fn)
             engine.decode_steps = engine.prefill_calls = 0
             engine.prefill_one_token_calls = 0
             t1 = time.monotonic()
@@ -658,10 +964,24 @@ async def _serve(torch, ks, card: str, tag: str, overrides: dict) -> dict:
             torch.cuda.synchronize()
             wall_s = time.monotonic() - t1
             launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
+            variants = {fn.__name__: dict(fn.variant_launches)
+                        for fn in ks.all_wrappers()}
             steps = {"decode_steps": engine.decode_steps,
                      "prefill_calls": engine.prefill_calls,
                      "prefill_one_token_calls":
                      engine.prefill_one_token_calls}
+            geometry = {"kv_ppb": engine.kv_ppb,
+                        "swa_ring_pages": engine._swa_ring_pages,
+                        "window": window}
+            if engine.paged:
+                alloc = engine.allocator
+                alloc.check_invariants()
+                geometry.update(
+                    pages_per_slot=alloc.pages_per_slot,
+                    num_pages=alloc.num_pages,
+                    free_pages_after=alloc.free_pages,
+                    free_pages_expected=alloc.num_pages - engine.kv_ppb,
+                    **ring)
         finally:
             await runner.cleanup()
     del provider, engine, app, runner, site
@@ -675,36 +995,60 @@ async def _serve(torch, ks, card: str, tag: str, overrides: dict) -> dict:
               and (u["completion_tokens"] == SERVE_MAX_TOKENS
                    or r["finish"] == "stop"),
               f"serve {tag}: unexpected completion {u} ({r['finish']})")
+    if unit == "tokens":
+        check([u["prompt_tokens"] for u in usages] == list(prompt_spec[1]),
+              f"serve {tag}: prompt tokens {[u['prompt_tokens'] for u in usages]}"
+              f" != {list(prompt_spec[1])}")
     decode_k = ks.name("decode", layout)
     prefill_k = ks.name("prefill", layout)
     other = "contiguous" if layout == "paged" else "paged"
+    variant = variant_name(window, geometry["kv_ppb"])
     check(launches[decode_k] > 0,
           f"serve {tag}: the decode kernel never ran on the main path")
     check(launches[prefill_k] > 0,
           f"serve {tag}: the prefill kernel never ran on the main path")
     # A prefill call one token wide runs the decode kernel (the forward's
-    # T == 1 path); every other prefill call runs the prefill kernel.
+    # T == 1 path); every other prefill call runs the prefill kernel. Every
+    # launch is of the configured body.
     one_tok = steps["prefill_one_token_calls"]
-    check(launches[decode_k] == n_layers * (steps["decode_steps"] + one_tok),
-          f"serve {tag}: decode launches {launches} != {n_layers} x {steps}")
-    check(launches[prefill_k]
-          == n_layers * (steps["prefill_calls"] - one_tok),
-          f"serve {tag}: prefill launches {launches} != {n_layers} x {steps}")
+    want = {decode_k: n_layers * (steps["decode_steps"] + one_tok),
+            prefill_k: n_layers * (steps["prefill_calls"] - one_tok)}
+    for name, n in want.items():
+        check(variants[name] == {variant: n},
+              f"serve {tag}: {name} ran {variants[name]}, expected "
+              f"{{{variant!r}: {n}}} ({n_layers} layers x {steps})")
     for kind in ("decode", "prefill"):
         name = ks.name(kind, other)
         check(launches[name] == 0,
               f"serve {tag}: the {other} layout's kernel {name} ran "
               f"{launches[name]} times")
+    ppb_req = engine_cfg.get("kv_pages_per_block", 1)
+    if layout == "paged":
+        check(geometry["kv_ppb"] == (1 if geometry["swa_ring_pages"]
+                                     else ppb_req),
+              f"serve {tag}: kv_ppb {geometry['kv_ppb']} (asked {ppb_req})")
+        check(geometry["free_pages_after"] == geometry["free_pages_expected"],
+              f"serve {tag}: pages not returned: {geometry}")
+    if tag.endswith("-ring"):
+        g = geometry
+        check(0 < g["swa_ring_pages"] < g["pages_per_slot"],
+              f"serve {tag}: the SWA ring did not engage: {g}")
+        check(g["max_row_pages"] <= g["swa_ring_pages"],
+              f"serve {tag}: a slot held more than the ring: {g}")
+        check(g["prefill_rotations"] > 0 and g["decode_rotations"] > 0,
+              f"serve {tag}: the ring did not rotate in prefill and in "
+              f"decode: {g}")
     res = {"phase": "serve", "config": tag, "card": card,
            "engine": engine_cfg, "layers": n_layers, "cache": cache_kind,
-           "requests": len(results), "sse": sum(streams),
+           "geometry": geometry, "requests": len(results),
+           "sse": sum(streams),
            "prompt_tokens": [u["prompt_tokens"] for u in usages],
            "completion_tokens": [u["completion_tokens"] for u in usages],
            "finish": [r["finish"] for r in results],
            "ttft_ms": [u.get("ttft_ms") for u in usages],
            "decode_tok_per_s": [u.get("tokens_per_sec") for u in usages],
            "engine_build_s": build_s, "wall_s": wall_s,
-           "launches": launches, **steps,
+           "launches": launches, "variant_launches": variants, **steps,
            "note": "TTFT and tok/s are information only"}
     emit(res)
     res["texts"] = [r["text"] for r in results]
@@ -715,61 +1059,60 @@ def serve_phase(torch, ks, card: str) -> dict:
     """Phase 5: each served configuration in turn; the card holds one
     engine at a time."""
     out = {}
-    for tag, overrides in SERVE_CONFIGS:
-        out[tag] = asyncio.run(_serve(torch, ks, card, tag, overrides))
+    for tag, engine_cfg, prompt_spec in SERVE_RUNS:
+        t0 = time.monotonic()
+        out[tag] = asyncio.run(_serve(torch, ks, card, tag, engine_cfg,
+                                      prompt_spec))
         gc.collect()
         torch.cuda.empty_cache()
+        freed = torch.cuda.memory_allocated()
         emit({"phase": "serve-freed", "config": tag,
-              "allocated_bytes": torch.cuda.memory_allocated()})
-    # Information: the two layouts read the same values in the same order,
-    # so a cache type's two layouts may well agree token for token; batch
-    # composition can change cuBLAS's choices, so this is not a check.
-    emit({"phase": "serve-agreement",
+              "allocated_bytes": freed,
+              "seconds": time.monotonic() - t0})
+        check(freed < FREED_BYTES_MAX,
+              f"serve {tag}: {freed} bytes still allocated after the engine "
+              f"stopped")
+    same = {f"{a}=={b}": out[a]["texts"] == out[b]["texts"]
+            for a, b in SAME_TEXT}
+    # Information: the llama layouts read the same values in the same order
+    # too, but their text is not required to agree.
+    emit({"phase": "serve-agreement", **same,
           "bf16_layouts_same_text": out["contiguous-bf16"]["texts"]
           == out["paged-bf16"]["texts"],
           "int8_layouts_same_text": out["contiguous-int8"]["texts"]
           == out["paged-int8"]["texts"]})
+    for pair, ok in same.items():
+        check(ok, f"serve: {pair} streamed different text")
     return out
 
 
 # ---------------------------------------------------------------------------
 
-ROWS = [  # (kind, layout, int8, serve config, source, replaces)
-    ("decode", "paged", False, "paged-bf16", "paged_attention.cu",
-     "llmapigateway_tpu/ops/paged_attention.py:272"),
-    ("prefill", "paged", False, "paged-bf16", "paged_attention.cu",
-     "llmapigateway_tpu/ops/paged_attention.py:438"),
-    ("decode", "contiguous", False, "contiguous-bf16", "flash_attention.cu",
-     "llmapigateway_tpu/ops/flash_attention.py:186"),
-    ("prefill", "contiguous", False, "contiguous-bf16", "flash_attention.cu",
-     "llmapigateway_tpu/ops/flash_attention.py:329"),
-    ("decode", "paged", True, "paged-int8", "paged_attention.cu",
-     "llmapigateway_tpu/ops/paged_attention.py:272"),
-    ("prefill", "paged", True, "paged-int8", "paged_attention.cu",
-     "llmapigateway_tpu/ops/paged_attention.py:438"),
-    ("decode", "contiguous", True, "contiguous-int8", "flash_attention.cu",
-     "llmapigateway_tpu/ops/flash_attention.py:186"),
-    ("prefill", "contiguous", True, "contiguous-int8", "flash_attention.cu",
-     "llmapigateway_tpu/ops/flash_attention.py:329"),
-]
-
-
-def kernels_line(ks, kernel_res: dict, serve: dict) -> dict:
-    rows = []
-    for kind, layout, quant, cfg, source, replaces in ROWS:
-        res = kernel_res[(kind, layout, quant)]
-        name = ks.name(kind, layout)
-        rows.append({"name": f"{name}{'_int8' if quant else ''}",
-                     "route": "cuda",
-                     "source": f"llmapigateway_tpu_torch/csrc/{source}",
-                     "replaces": replaces,
-                     "launches": serve[cfg]["launches"][name],
-                     "max_abs_err": max(r["max_abs_err"] for r in res),
-                     "ms": res[0]["ms"], "plain_ms": res[0]["plain_ms"],
-                     "bound_ms": res[0]["bound_ms"],
-                     "bound_by": res[0]["bound_by"],
-                     "library_ms": res[0]["library_ms"]})
-    return {"kernels": rows}
+def kernels_line(kernel_rows: list[dict], serve: dict) -> dict:
+    """One row per kernel body and shape: a prefill body's times are its
+    first chunk length's (T 512), its error the largest over both.
+    ``launches`` counts the body's launches in the serve run whose traffic
+    drives it (``serve``); every body must have run there."""
+    from llmapigateway_tpu_torch.ops.flash_attention import variant_name
+    rows = {}
+    for r in kernel_rows:
+        if r["name"] in rows:
+            row = rows[r["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            continue
+        variant = variant_name(r["window"], r["pages_per_block"])
+        run = SERVE_OF[(r["layout"], r["kv"], variant)]
+        launches = serve[run]["variant_launches"][r["fn"]].get(variant, 0)
+        check(launches > 0, f"{r['name']}: its body never ran on the main "
+                            f"path of serve run {run}")
+        rows[r["name"]] = {
+            "name": r["name"], "route": "cuda",
+            "source": f"llmapigateway_tpu_torch/csrc/{SOURCES[r['layout']]}",
+            "replaces": REPLACES[(r["kind"], r["layout"])],
+            "launches": launches, "serve": run, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    return {"kernels": list(rows.values())}
 
 
 def main() -> int:
@@ -794,6 +1137,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ks = Kernels(pa, fa)
+    seconds = {}
 
     try:
         smi = nvidia_smi_line()
@@ -806,8 +1150,8 @@ def main() -> int:
         builds = _kernels.build()
         for name in _kernels.SOURCES:
             _kernels.library(name)
-        emit({"phase": "build", "arch": "sm_90a",
-              "wall_s": time.monotonic() - t0,
+        seconds["build"] = time.monotonic() - t0
+        emit({"phase": "build", "arch": "sm_90a", "wall_s": seconds["build"],
               "sources": {name: {
                   "library": os.path.relpath(b.path, HERE),
                   "seconds": b.seconds,
@@ -816,14 +1160,23 @@ def main() -> int:
                             or "spill" in ln]} for name, b in builds.items()}})
 
         gen = torch.Generator(device="cuda").manual_seed(0)
-        kernel_res = kernel_phase(torch, ks, gen)
+        t0 = time.monotonic()
+        kernel_rows = kernel_phase(torch, ks, gen)
+        seconds["kernel"] = time.monotonic() - t0
+        t0 = time.monotonic()
         check_model(torch)
+        seconds["model"] = time.monotonic() - t0
+        t0 = time.monotonic()
         serve = serve_phase(torch, ks, smi)
+        seconds["serve"] = time.monotonic() - t0
+
+        line = kernels_line(kernel_rows, serve)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    emit(kernels_line(ks, kernel_res, serve))
+    emit({"phase": "seconds", **seconds})
+    emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

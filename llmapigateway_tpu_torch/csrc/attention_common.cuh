@@ -13,9 +13,11 @@
 //
 // The four kernels differ only in two template parameters of the bodies:
 // * how a key's row is found (Rows): PagedRows through the slot's
-//   page-table row, DenseRows by a row stride in the contiguous cache. A
-//   key's scale sits at the same row index in both layouts (scales are
-//   stored [.., KV, 1, N] beside values [.., KV, N, Dh]).
+//   page-table row, PagedRunRows through one table entry per aligned run
+//   of pages_per_block logical pages (the packed multi-page table),
+//   DenseRows by a row stride in the contiguous cache. A key's scale sits at
+//   the same row index in every layout (scales are stored [.., KV, 1, N]
+//   beside values [.., KV, N, Dh]).
 // * the KV element type (KVT): Bf16KV, or Int8KV with a per-key fp32 scale.
 //   Int8 values are widened to bf16 in shared memory, which is exact (|q| <=
 //   127 needs 7 bits; bf16 keeps 8), so the score and PV loops are the same
@@ -24,9 +26,19 @@
 //   probabilities, and multiplies each probability by its value's scale in
 //   the PV product.
 //
-// Shared-memory rows hold HEAD_DIM bf16 values as PAIRS 32-bit words padded
-// to ROW_WORDS words, so a warp reading one column across 32 rows hits 32
-// different banks.
+// A sliding window (mistral family; HF semantics: key j is visible to the
+// query at position i iff i - j < window, the query itself included) is a
+// runtime argument: both bodies start their tile loop at the tile holding
+// the first key any of their rows can see, so a windowed decode reads
+// O(window) keys, not O(context). Keys below that floor inside the first
+// tile are never read (zero-filled, as past-the-end keys are) and are
+// masked by select. window == 0 is full causal attention.
+//
+// The head width HD is a template parameter of everything below: the
+// kernels are built for the widths of the served presets (HEAD_DIMS: 128 for
+// llama-3 and mistral, 96 for phi-3-mini). Shared-memory rows hold HD bf16
+// values as PAIRS 32-bit words padded to ROW_WORDS words (an odd count), so
+// a warp reading one column across 32 rows hits 32 different banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,9 +49,6 @@
 
 namespace pa {
 
-constexpr int HEAD_DIM = 128;
-constexpr int PAIRS = HEAD_DIM / 2;          // bf16x2 words per row
-constexpr int ROW_WORDS = PAIRS + 1;         // padded shared-memory row
 constexpr int TILE_K = 32;                   // keys per shared-memory tile
 constexpr int TILE_Q = 64;                   // query rows per prefill block
 constexpr int NTHREADS = 128;
@@ -54,20 +63,29 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
     return __uint_as_float(w & 0xffff0000u);
 }
 
+template <int HD>
+struct Dims {
+    static_assert(HD % 16 == 0, "rows load as 16-byte chunks of int8");
+    static constexpr int PAIRS = HD / 2;          // bf16x2 words per row
+    static constexpr int ROW_WORDS = PAIRS + 1;   // padded shared-memory row
+};
+
 // --------------------------------------------------------------------------
 // KV element types
 // --------------------------------------------------------------------------
 
+template <int HD>
 struct Bf16KV {
     using elem = bf16;
+    static constexpr int kHD = HD;
     static constexpr bool kQuant = false;
-    static constexpr int CHUNKS = HEAD_DIM / 8;   // 16-byte loads per row
+    static constexpr int CHUNKS = HD / 8;         // 16-byte loads per row
 
     // Chunk c (values 8c .. 8c+7) of key row `row` into its padded slot.
     __device__ static void load(const elem* base, long long row, int c,
                                 uint32_t* dst) {
         const uint4 v =
-            __ldg(reinterpret_cast<const uint4*>(base + row * HEAD_DIM) + c);
+            __ldg(reinterpret_cast<const uint4*>(base + row * HD) + c);
         dst[c * 4 + 0] = v.x;
         dst[c * 4 + 1] = v.y;
         dst[c * 4 + 2] = v.z;
@@ -88,16 +106,18 @@ __device__ __forceinline__ uint32_t i8x2_as_bf16x2(uint32_t w, int k) {
     return i8_as_bf16(w, k) | (i8_as_bf16(w, k + 1) << 16);
 }
 
+template <int HD>
 struct Int8KV {
     using elem = int8_t;
+    static constexpr int kHD = HD;
     static constexpr bool kQuant = true;
-    static constexpr int CHUNKS = HEAD_DIM / 16;  // a 128-byte row, 16 B a load
+    static constexpr int CHUNKS = HD / 16;        // an HD-byte row, 16 B a load
 
     // Chunk c (values 16c .. 16c+15) of key row `row`, widened to bf16.
     __device__ static void load(const elem* base, long long row, int c,
                                 uint32_t* dst) {
         const uint4 v =
-            __ldg(reinterpret_cast<const uint4*>(base + row * HEAD_DIM) + c);
+            __ldg(reinterpret_cast<const uint4*>(base + row * HD) + c);
         const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -116,13 +136,17 @@ struct Int8KV {
 // the position lies outside what the cache holds for this row (never read).
 // --------------------------------------------------------------------------
 
-// Page pool [P, KV, page, HEAD_DIM]: the block reads its own page-table row
+// Page pool [P, KV, page, HD]: the block reads its own page-table row
 // (there is no scalar prefetch on the GPU). An unallocated table entry (0,
 // the trash page) is never dereferenced for a live position: reads stop at
 // n_stale or the causal bound, and past the table.
 struct PagedRows {
     const int* table_row;
     int NP, page, KV, kv;
+    __device__ static PagedRows make(const int* table_row, int NP, int page,
+                                     int KV, int kv, int /*ppb*/) {
+        return {table_row, NP, page, KV, kv};
+    }
     __device__ long long operator()(int pos) const {
         const int lp = pos / page;
         if (lp >= NP) return -1;
@@ -131,7 +155,31 @@ struct PagedRows {
     }
 };
 
-// Contiguous cache [Bc, KV, S, HEAD_DIM]: row `base` is (cache row, kv).
+// Packed multi-page pool (kv_pages_per_block = ppb > 1): the allocator maps
+// every aligned run of ppb logical pages onto ppb contiguous physical pages
+// starting at a ppb-aligned page, so a run needs ONE table entry, p0 =
+// table[(lp / ppb) * ppb], and logical page lp lives at p0 + lp % ppb (the
+// Pallas kernel's gather-free superpage index map,
+// llmapigateway_tpu/ops/paged_attention.py:320-330). The keys, and their
+// order, are those of PagedRows on the same packed table, so the output is
+// the same bit for bit.
+struct PagedRunRows {
+    const int* table_row;
+    int NP, page, KV, kv, ppb;
+    __device__ static PagedRunRows make(const int* table_row, int NP,
+                                        int page, int KV, int kv, int ppb) {
+        return {table_row, NP, page, KV, kv, ppb};
+    }
+    __device__ long long operator()(int pos) const {
+        const int lp = pos / page;
+        if (lp >= NP) return -1;
+        const int in_run = lp % ppb;
+        const long long p0 = table_row[lp - in_run];
+        return ((p0 + in_run) * KV + kv) * page + (pos - lp * page);
+    }
+};
+
+// Contiguous cache [Bc, KV, S, HD]: row `base` is (cache row, kv).
 struct DenseRows {
     long long base;      // (cache_row * KV + kv) * S
     int S;
@@ -144,8 +192,9 @@ struct DenseRows {
 // Shared memory and per-thread state
 // --------------------------------------------------------------------------
 
-template <int R>
+template <int R, int HD>
 struct Smem {
+    static constexpr int ROW_WORDS = Dims<HD>::ROW_WORDS;
     uint32_t q[R * ROW_WORDS];
     uint32_t k[TILE_K * ROW_WORDS];
     uint32_t v[TILE_K * ROW_WORDS];
@@ -154,10 +203,11 @@ struct Smem {
     float m[R], l[R], alpha[R];
 };
 
-// Per-thread slice of the R x HEAD_DIM fp32 accumulator: thread t owns row
+// Per-thread slice of the R x HD fp32 accumulator: thread t owns row
 // t / TPR and the bf16 pairs lane, lane + TPR, ... of it.
-template <int R>
+template <int R, int HD>
 struct RowAcc {
+    static constexpr int PAIRS = Dims<HD>::PAIRS;
     static constexpr int TPR = NTHREADS / R;                  // threads per row
     static constexpr int NPAIR = (PAIRS + TPR - 1) / TPR;     // pairs per thread
     static_assert(NTHREADS % R == 0, "rows must divide the block");
@@ -169,34 +219,39 @@ struct RowAcc {
     }
 };
 
-// Load `n_rows` query rows of HEAD_DIM bf16 (row r at src + r * stride
-// elements, 16-byte aligned) into padded shared memory; rows >= n_valid are
-// zeroed.
+// Load `n_rows` query rows of HD bf16 (row r at src + r * stride elements,
+// 16-byte aligned) into padded shared memory; rows >= n_valid are zeroed.
+template <int HD>
 __device__ __forceinline__ void load_q_rows(const bf16* src, long long stride,
                                             int n_valid, int n_rows,
                                             uint32_t* dst) {
-    for (int i = threadIdx.x; i < n_rows * Bf16KV::CHUNKS; i += NTHREADS) {
-        const int r = i / Bf16KV::CHUNKS, c = i % Bf16KV::CHUNKS;
+    using Q = Bf16KV<HD>;
+    constexpr int ROW_WORDS = Dims<HD>::ROW_WORDS;
+    for (int i = threadIdx.x; i < n_rows * Q::CHUNKS; i += NTHREADS) {
+        const int r = i / Q::CHUNKS, c = i % Q::CHUNKS;
         if (r < n_valid)
-            Bf16KV::load(src + r * stride, 0, c, dst + r * ROW_WORDS);
+            Q::load(src + r * stride, 0, c, dst + r * ROW_WORDS);
         else
-            Bf16KV::zero(c, dst + r * ROW_WORDS);
+            Q::zero(c, dst + r * ROW_WORDS);
     }
 }
 
 // Load the K and V tile of keys [pos0, pos0 + TILE_K) — and, for int8, their
-// scales. Keys at or past `limit`, and keys the Rows policy does not hold,
-// are zeroed (scale 0) and never read from device memory.
+// scales. Keys outside [lo, limit), and keys the Rows policy does not hold,
+// are zeroed (scale 0) and never read from device memory: below a window's
+// floor the page may be trash or recycled (the paged SWA ring), and a
+// zeroed key cannot carry a stale int8 scale into a live row's softmax.
 template <typename KVT, typename Rows>
 __device__ __forceinline__ void load_kv_tile(
         const typename KVT::elem* k, const typename KVT::elem* v,
         const float* ks, const float* vs, const Rows& rows, int pos0,
-        int limit, uint32_t* k_s, uint32_t* v_s, float* ks_s,
+        int lo, int limit, uint32_t* k_s, uint32_t* v_s, float* ks_s,
         float* vs_s) {
+    constexpr int ROW_WORDS = Dims<KVT::kHD>::ROW_WORDS;
     for (int i = threadIdx.x; i < TILE_K * KVT::CHUNKS; i += NTHREADS) {
         const int r = i / KVT::CHUNKS, c = i % KVT::CHUNKS;
         const int pos = pos0 + r;
-        const long long row = pos < limit ? rows(pos) : -1;
+        const long long row = pos >= lo && pos < limit ? rows(pos) : -1;
         if (row >= 0) {
             KVT::load(k, row, c, k_s + r * ROW_WORDS);
             KVT::load(v, row, c, v_s + r * ROW_WORDS);
@@ -208,7 +263,7 @@ __device__ __forceinline__ void load_kv_tile(
     if constexpr (KVT::kQuant) {
         for (int r = threadIdx.x; r < TILE_K; r += NTHREADS) {
             const int pos = pos0 + r;
-            const long long row = pos < limit ? rows(pos) : -1;
+            const long long row = pos >= lo && pos < limit ? rows(pos) : -1;
             ks_s[r] = row >= 0 ? __ldg(ks + row) : 0.f;
             vs_s[r] = row >= 0 ? __ldg(vs + row) : 0.f;
         }
@@ -219,10 +274,11 @@ __device__ __forceinline__ void load_kv_tile(
 // m = q . k_new * scale, l = 1, acc = v_new. The stale cache does not hold
 // the current token (deferred insert), so its contribution starts here, at
 // full precision in both KV types.
-template <int R>
+template <int R, int HD>
 __device__ __forceinline__ void self_column_init(
         const uint32_t* q_s, const bf16* k_new, const bf16* v_new,
-        float scale, float* m_s, float* l_s, RowAcc<R>& acc) {
+        float scale, float* m_s, float* l_s, RowAcc<R, HD>& acc) {
+    constexpr int PAIRS = Dims<HD>::PAIRS, ROW_WORDS = Dims<HD>::ROW_WORDS;
     const uint32_t* kn = reinterpret_cast<const uint32_t*>(k_new);
     const uint32_t* vn = reinterpret_cast<const uint32_t*>(v_new);
     for (int r = threadIdx.x; r < R; r += NTHREADS) {
@@ -235,7 +291,7 @@ __device__ __forceinline__ void self_column_init(
         l_s[r] = 1.f;
     }
 #pragma unroll
-    for (int i = 0; i < RowAcc<R>::NPAIR; ++i) {
+    for (int i = 0; i < RowAcc<R, HD>::NPAIR; ++i) {
         const int p = acc.pair(i);
         const uint32_t w = p < PAIRS ? vn[p] : 0u;
         acc.x[i] = bf16_lo(w);
@@ -245,11 +301,12 @@ __device__ __forceinline__ void self_column_init(
 
 // Scores of the R query rows against the TILE_K keys of the tile, with the
 // caller's mask: s_s[r][j] = visible(r, j) ? (q.k * scale) [* ks_j] : NEG_INF.
-template <int R, bool QUANT, typename Visible>
+template <int R, int HD, bool QUANT, typename Visible>
 __device__ __forceinline__ void tile_scores(const uint32_t* q_s,
                                             const uint32_t* k_s,
                                             const float* ks_s, float scale,
                                             float* s_s, Visible visible) {
+    constexpr int PAIRS = Dims<HD>::PAIRS, ROW_WORDS = Dims<HD>::ROW_WORDS;
     for (int i = threadIdx.x; i < R * TILE_K; i += NTHREADS) {
         const int r = i / TILE_K, j = i % TILE_K;
         const uint32_t* qr = q_s + r * ROW_WORDS;
@@ -272,11 +329,12 @@ __device__ __forceinline__ void tile_scores(const uint32_t* q_s,
 // Row statistics run one thread per row and leave e_j in s_s and alpha in
 // alpha_s; then every thread updates its slice of acc from the V tile.
 // Starts after the caller's barrier over s_s; ends with a barrier-free PV.
-template <int R, bool QUANT>
+template <int R, int HD, bool QUANT>
 __device__ __forceinline__ void attend_block(float* s_s, const uint32_t* v_s,
                                              const float* vs_s, float* m_s,
                                              float* l_s, float* alpha_s,
-                                             RowAcc<R>& acc) {
+                                             RowAcc<R, HD>& acc) {
+    constexpr int PAIRS = Dims<HD>::PAIRS, ROW_WORDS = Dims<HD>::ROW_WORDS;
     for (int r = threadIdx.x; r < R; r += NTHREADS) {
         float* sr = s_s + r * (TILE_K + 1);
         const float m_prev = m_s[r];
@@ -298,7 +356,7 @@ __device__ __forceinline__ void attend_block(float* s_s, const uint32_t* v_s,
     const float alpha = alpha_s[r];
     const float* er = s_s + r * (TILE_K + 1);
 #pragma unroll
-    for (int i = 0; i < RowAcc<R>::NPAIR; ++i) {
+    for (int i = 0; i < RowAcc<R, HD>::NPAIR; ++i) {
         acc.x[i] *= alpha;
         acc.y[i] *= alpha;
     }
@@ -307,7 +365,7 @@ __device__ __forceinline__ void attend_block(float* s_s, const uint32_t* v_s,
         if constexpr (QUANT) e *= vs_s[j];
         const uint32_t* vr = v_s + j * ROW_WORDS;
 #pragma unroll
-        for (int i = 0; i < RowAcc<R>::NPAIR; ++i) {
+        for (int i = 0; i < RowAcc<R, HD>::NPAIR; ++i) {
             const int p = acc.pair(i);
             if (p < PAIRS) {
                 const uint32_t w = vr[p];
@@ -319,15 +377,16 @@ __device__ __forceinline__ void attend_block(float* s_s, const uint32_t* v_s,
 }
 
 // acc / l (l == 0 guarded, as the Pallas prefill kernel does), rounded to
-// bf16, into the row's HEAD_DIM outputs at `dst`.
-template <int R>
-__device__ __forceinline__ void write_row(const RowAcc<R>& acc,
+// bf16, into the row's HD outputs at `dst`.
+template <int R, int HD>
+__device__ __forceinline__ void write_row(const RowAcc<R, HD>& acc,
                                           const float* l_s, bf16* dst) {
+    constexpr int PAIRS = Dims<HD>::PAIRS;
     const float l0 = l_s[acc.row()];
     const float l = l0 == 0.f ? 1.f : l0;
     __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dst);
 #pragma unroll
-    for (int i = 0; i < RowAcc<R>::NPAIR; ++i) {
+    for (int i = 0; i < RowAcc<R, HD>::NPAIR; ++i) {
         const int p = acc.pair(i);
         if (p < PAIRS)
             out[p] = __floats2bfloat162_rn(acc.x[i] / l, acc.y[i] / l);
@@ -338,70 +397,86 @@ __device__ __forceinline__ void write_row(const RowAcc<R>& acc,
 // The two bodies
 // --------------------------------------------------------------------------
 
-// Decode: the G query heads of one KV head of one slot (rows q[0..G), HEAD_DIM
-// apart) against the stale keys [0, n) plus the self column; outputs to the
-// G rows at `out`.
+// The first key position a query at `q_pos` sees under `window` (0: all).
+__device__ __forceinline__ int window_floor(int q_pos, int window) {
+    return window > 0 ? max(q_pos - (window - 1), 0) : 0;
+}
+
+// Decode: the G query heads of one KV head of one slot (rows q[0..G), HD
+// apart) against the stale keys [lo, n) plus the self column; outputs to the
+// G rows at `out`. The tile loop starts at the tile holding `lo` (the
+// window's floor, 0 without a window).
 template <int G, typename KVT, typename Rows>
 __device__ __forceinline__ void decode_body(
-        Smem<G>& sm, const bf16* q, const bf16* k_new, const bf16* v_new,
-        const typename KVT::elem* k, const typename KVT::elem* v,
-        const float* ks, const float* vs, const Rows& rows, int n,
-        float scale, bf16* out) {
-    load_q_rows(q, HEAD_DIM, G, G, sm.q);
+        Smem<G, KVT::kHD>& sm, const bf16* q, const bf16* k_new,
+        const bf16* v_new, const typename KVT::elem* k,
+        const typename KVT::elem* v, const float* ks, const float* vs,
+        const Rows& rows, int lo, int n, float scale, bf16* out) {
+    constexpr int HD = KVT::kHD;
+    load_q_rows<HD>(q, HD, G, G, sm.q);
     __syncthreads();
-    RowAcc<G> acc;
-    self_column_init<G>(sm.q, k_new, v_new, scale, sm.m, sm.l, acc);
-    for (int pos0 = 0; pos0 < n; pos0 += TILE_K) {
+    RowAcc<G, HD> acc;
+    self_column_init<G, HD>(sm.q, k_new, v_new, scale, sm.m, sm.l, acc);
+    for (int pos0 = lo - lo % TILE_K; pos0 < n; pos0 += TILE_K) {
         __syncthreads();    // the previous tile's readers are done
-        load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, n, sm.k, sm.v, sm.ks,
+        load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, lo, n, sm.k, sm.v, sm.ks,
                           sm.vs);
         __syncthreads();
-        tile_scores<G, KVT::kQuant>(sm.q, sm.k, sm.ks, scale, sm.s,
-                                    [=](int, int j) { return pos0 + j < n; });
+        tile_scores<G, HD, KVT::kQuant>(
+            sm.q, sm.k, sm.ks, scale, sm.s, [=](int, int j) {
+                const int pos = pos0 + j;
+                return pos >= lo && pos < n;
+            });
         __syncthreads();
-        attend_block<G, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
-                                     sm.alpha, acc);
+        attend_block<G, HD, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
+                                         sm.alpha, acc);
     }
     __syncthreads();
-    write_row<G>(acc, sm.l, out + acc.row() * HEAD_DIM);
+    write_row<G, HD>(acc, sm.l, out + acc.row() * HD);
 }
 
 // Prefill: a tile of `rows_in_tile` query positions first_q, first_q + 1, ...
 // of one head (row r at q + r * stride) against keys [0, n_keys), causal:
-// query row r sees keys s <= first_q + r. Keys past the tile's last query
-// are never walked.
+// query row r sees keys s <= first_q + r, and with a window also
+// s > first_q + r - window. Keys past the tile's last query, and keys below
+// the window floor of its first query, are never walked.
 template <typename KVT, typename Rows>
 __device__ __forceinline__ void prefill_body(
-        Smem<TILE_Q>& sm, const bf16* q, long long stride, int rows_in_tile,
-        int first_q, int n_keys, const typename KVT::elem* k,
-        const typename KVT::elem* v, const float* ks, const float* vs,
-        const Rows& rows, float scale, bf16* out) {
-    load_q_rows(q, stride, rows_in_tile, TILE_Q, sm.q);
+        Smem<TILE_Q, KVT::kHD>& sm, const bf16* q, long long stride,
+        int rows_in_tile, int first_q, int n_keys, int window,
+        const typename KVT::elem* k, const typename KVT::elem* v,
+        const float* ks, const float* vs, const Rows& rows, float scale,
+        bf16* out) {
+    constexpr int HD = KVT::kHD;
+    load_q_rows<HD>(q, stride, rows_in_tile, TILE_Q, sm.q);
     for (int r = threadIdx.x; r < TILE_Q; r += NTHREADS) {
         sm.m[r] = NEG_INF;
         sm.l[r] = 0.f;
     }
-    RowAcc<TILE_Q> acc;
+    RowAcc<TILE_Q, HD> acc;
 #pragma unroll
-    for (int i = 0; i < RowAcc<TILE_Q>::NPAIR; ++i) acc.x[i] = acc.y[i] = 0.f;
+    for (int i = 0; i < RowAcc<TILE_Q, HD>::NPAIR; ++i)
+        acc.x[i] = acc.y[i] = 0.f;
 
-    for (int pos0 = 0; pos0 < n_keys; pos0 += TILE_K) {
+    const int lo = window_floor(first_q, window);
+    for (int pos0 = lo - lo % TILE_K; pos0 < n_keys; pos0 += TILE_K) {
         __syncthreads();
-        load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, n_keys, sm.k, sm.v,
+        load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, lo, n_keys, sm.k, sm.v,
                           sm.ks, sm.vs);
         __syncthreads();
-        tile_scores<TILE_Q, KVT::kQuant>(
+        tile_scores<TILE_Q, HD, KVT::kQuant>(
             sm.q, sm.k, sm.ks, scale, sm.s, [=](int r, int j) {
-                const int s = pos0 + j;
-                return r < rows_in_tile && s < n_keys && s <= first_q + r;
+                const int s = pos0 + j, q_pos = first_q + r;
+                return r < rows_in_tile && s < n_keys && s <= q_pos
+                       && (window == 0 || s > q_pos - window);
             });
         __syncthreads();
-        attend_block<TILE_Q, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
-                                          sm.alpha, acc);
+        attend_block<TILE_Q, HD, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
+                                              sm.alpha, acc);
     }
     __syncthreads();
     if (acc.row() < rows_in_tile)
-        write_row<TILE_Q>(acc, sm.l, out + acc.row() * stride);
+        write_row<TILE_Q, HD>(acc, sm.l, out + acc.row() * stride);
 }
 
 // --------------------------------------------------------------------------
@@ -418,6 +493,17 @@ inline bool with_group(int G, F&& f) {
         case 4: f(std::integral_constant<int, 4>{}); return true;
         case 8: f(std::integral_constant<int, 8>{}); return true;
         case 16: f(std::integral_constant<int, 16>{}); return true;
+        default: return false;
+    }
+}
+
+// Call f(KVT{}) for the KV type of (quant, head width) the kernels are built
+// for — head widths 128 and 96; false for any other width.
+template <typename F>
+inline bool with_kv_type(int quant, int head_dim, F&& f) {
+    switch (head_dim) {
+        case 128: return quant ? f(Int8KV<128>{}) : f(Bf16KV<128>{});
+        case 96: return quant ? f(Int8KV<96>{}) : f(Bf16KV<96>{});
         default: return false;
     }
 }

@@ -11,7 +11,9 @@
 //   found by a row stride instead of a page table: one block per (KV head,
 //   slot), G query rows in shared memory, 16-byte loads of 32-key tiles up
 //   to n_stale, nothing past it read. The Pallas kernel's BlockSpec clamp
-//   that elides dead blocks' DMA becomes a loop bound.
+//   that elides dead blocks' DMA becomes a loop bound — at both ends under a
+//   sliding window (keys from w0 = max(n_stale - (window - 1), 0), :160-176),
+//   so a windowed decode reads O(window) keys of the row, not O(context).
 //
 // flash_prefill_kernel replaces flash_prefill_attention / _prefill_kernel
 // (:329, :282): a chunk of T queries at positions start + t, causal over the
@@ -19,14 +21,16 @@
 // int8).
 //   Bound: operations at chunk sizes. Design: the paged prefill kernel's
 //   (block per 64-query tile, head, slot; 32-key tiles up to the tile's
-//   causal bound; fp32 FMA), over the cache row. Positions past the cache
+//   causal bound; fp32 FMA), over the cache row; with a window, from the
+//   floor of the tile's first query (:300-317). Positions past the cache
 //   extent S hold no keys: a query there sees all S keys and is the caller's
 //   pad.
 //
 // Both kernels take an optional row map `rows` [B] (nullptr: row b): query
 // row b reads cache row rows[b], so the engine's prefill of K slots works on
 // the [B_slots, ...] cache in place. Both are the shared bodies of
-// attention_common.cuh over DenseRows, in a bf16 and an int8 instantiation.
+// attention_common.cuh over DenseRows, in a bf16 and an int8 instantiation
+// for each head width (128, 96).
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError().
 #include "attention_common.cuh"
@@ -44,17 +48,19 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales, const int* __restrict__ row_map,
         const int* __restrict__ n_stale, bf16* __restrict__ out, int KV,
-        int S, float scale) {
-    __shared__ Smem<G> sm;
+        int S, float scale, int window) {
+    constexpr int HD = KVT::kHD;
+    __shared__ Smem<G, HD> sm;
     const int kv = blockIdx.x, b = blockIdx.y;
     const long long head0 = ((long long)b * KV + kv) * G;
-    const long long self_off = ((long long)b * KV + kv) * HEAD_DIM;
+    const long long self_off = ((long long)b * KV + kv) * HD;
     const long long row = row_map ? row_map[b] : b;
     const DenseRows rows{(row * KV + kv) * S, S};
     const int n = min(n_stale[b], S);
-    decode_body<G, KVT>(sm, q + head0 * HEAD_DIM, k_new + self_off,
-                        v_new + self_off, k, v, k_scales, v_scales, rows, n,
-                        scale, out + head0 * HEAD_DIM);
+    const int w0 = window_floor(n_stale[b], window);
+    decode_body<G, KVT>(sm, q + head0 * HD, k_new + self_off,
+                        v_new + self_off, k, v, k_scales, v_scales, rows, w0,
+                        n, scale, out + head0 * HD);
 }
 
 template <typename KVT>
@@ -64,20 +70,22 @@ __global__ void __launch_bounds__(NTHREADS) flash_prefill_kernel(
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales, const int* __restrict__ row_map,
         const int* __restrict__ start, bf16* __restrict__ out, int T, int H,
-        int KV, int S, float scale) {
-    __shared__ Smem<TILE_Q> sm;
+        int KV, int S, float scale, int window) {
+    constexpr int HD = KVT::kHD;
+    __shared__ Smem<TILE_Q, HD> sm;
     const int t0 = blockIdx.x * TILE_Q, h = blockIdx.y, b = blockIdx.z;
     const int kv = h / (H / KV);
     const int rows_in_tile = min(TILE_Q, T - t0);   // ragged last tile
-    const long long stride = (long long)H * HEAD_DIM;
+    const long long stride = (long long)H * HD;
     const long long q0 = ((long long)b * T + t0) * stride
-                         + (long long)h * HEAD_DIM;
+                         + (long long)h * HD;
     const int first_q = start[b] + t0;
     const int n_keys = min(first_q + rows_in_tile, S);
     const long long row = row_map ? row_map[b] : b;
     const DenseRows rows{(row * KV + kv) * S, S};
-    prefill_body<KVT>(sm, q + q0, stride, rows_in_tile, first_q, n_keys, k, v,
-                      k_scales, v_scales, rows, scale, out + q0);
+    prefill_body<KVT>(sm, q + q0, stride, rows_in_tile, first_q, n_keys,
+                      window, k, v, k_scales, v_scales, rows, scale,
+                      out + q0);
 }
 
 template <typename KVT>
@@ -85,7 +93,7 @@ bool launch_decode(const void* q, const void* k_new, const void* v_new,
                    const void* k, const void* v, const void* ks,
                    const void* vs, const void* row_map, const void* n_stale,
                    void* out, int B, int G, int KV, int S, float scale,
-                   cudaStream_t stream) {
+                   int window, cudaStream_t stream) {
     using E = typename KVT::elem;
     return with_group(G, [&](auto g) {
         flash_decode_kernel<decltype(g)::value, KVT>
@@ -96,7 +104,7 @@ bool launch_decode(const void* q, const void* k_new, const void* v_new,
                 static_cast<const float*>(vs),
                 static_cast<const int*>(row_map),
                 static_cast<const int*>(n_stale), static_cast<bf16*>(out), KV,
-                S, scale);
+                S, scale, window);
     });
 }
 
@@ -104,7 +112,7 @@ template <typename KVT>
 void launch_prefill(const void* q, const void* k, const void* v,
                     const void* ks, const void* vs, const void* row_map,
                     const void* start, void* out, int B, int T, int H, int KV,
-                    int S, float scale, cudaStream_t stream) {
+                    int S, float scale, int window, cudaStream_t stream) {
     using E = typename KVT::elem;
     const dim3 grid((T + TILE_Q - 1) / TILE_Q, H, B);
     flash_prefill_kernel<KVT><<<grid, NTHREADS, 0, stream>>>(
@@ -112,27 +120,28 @@ void launch_prefill(const void* q, const void* k, const void* v,
         static_cast<const E*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(row_map),
         static_cast<const int*>(start), static_cast<bf16*>(out), T, H, KV, S,
-        scale);
+        scale, window);
 }
 
 }  // namespace
 
 // k/v: the cache layer [Bc, KV, S, Dh] (bf16, or int8 when `quant`); ks/vs:
-// the int8 scales [Bc, KV, 1, S] (ignored for bf16); row_map: [B] or null.
+// the int8 scales [Bc, KV, 1, S] (ignored for bf16); row_map: [B] or null;
+// window: 0 or the sliding window.
 extern "C" int flash_decode_attention(
         const void* q, const void* k_new, const void* v_new, const void* k,
         const void* v, const void* ks, const void* vs, const void* row_map,
         const void* n_stale, void* out, int B, int H, int KV, int head_dim,
-        int S, float scale, int quant, void* stream) {
-    if (head_dim != HEAD_DIM || B < 0 || KV <= 0 || H % KV != 0 || S < 0)
+        int S, float scale, int quant, int window, void* stream) {
+    if (B < 0 || KV <= 0 || H % KV != 0 || S < 0 || window < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool ok = quant
-        ? launch_decode<Int8KV>(q, k_new, v_new, k, v, ks, vs, row_map,
-                                n_stale, out, B, H / KV, KV, S, scale, s)
-        : launch_decode<Bf16KV>(q, k_new, v_new, k, v, ks, vs, row_map,
-                                n_stale, out, B, H / KV, KV, S, scale, s);
+    const bool ok = with_kv_type(quant, head_dim, [&](auto kvt) {
+        return launch_decode<decltype(kvt)>(q, k_new, v_new, k, v, ks, vs,
+                                            row_map, n_stale, out, B, H / KV,
+                                            KV, S, scale, window, s);
+    });
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
@@ -141,18 +150,17 @@ extern "C" int flash_prefill_attention(
         const void* q, const void* k, const void* v, const void* ks,
         const void* vs, const void* row_map, const void* start, void* out,
         int B, int T, int H, int KV, int head_dim, int S, float scale,
-        int quant, void* stream) {
-    if (head_dim != HEAD_DIM || B < 0 || T < 0 || KV <= 0 || H % KV != 0 ||
-        S < 0)
+        int quant, int window, void* stream) {
+    if (B < 0 || T < 0 || KV <= 0 || H % KV != 0 || S < 0 || window < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0 || T == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (quant)
-        launch_prefill<Int8KV>(q, k, v, ks, vs, row_map, start, out, B, T, H,
-                               KV, S, scale, s);
-    else
-        launch_prefill<Bf16KV>(q, k, v, ks, vs, row_map, start, out, B, T, H,
-                               KV, S, scale, s);
+    const bool ok = with_kv_type(quant, head_dim, [&](auto kvt) {
+        launch_prefill<decltype(kvt)>(q, k, v, ks, vs, row_map, start, out, B,
+                                      T, H, KV, S, scale, window, s);
+        return true;
+    });
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,12 @@
 // paged_decode_kernel replaces the Pallas TPU kernel paged_decode_attention /
 // _paged_decode_kernel (llmapigateway_tpu/ops/paged_attention.py:272, :204):
 // one query token per slot against the STALE page pool (ragged by n_stale)
-// plus the self column, GQA handled in the kernel.
+// plus the self column, GQA handled in the kernel, with its two variants:
+// a sliding window (stale keys from w0 = max(n_stale - (window - 1), 0)
+// only; the tile loop starts at w0's tile, so a windowed decode reads
+// O(window) keys and never touches a page below the window, which the SWA
+// ring may have recycled) and multi-page blocks (pages_per_block > 1: one
+// table lookup per aligned run of pages, PagedRunRows).
 //   Bound: bytes. Every live K/V byte is read once (B * n * KV * Dh * 2 * 2
 //   in bf16, half that plus 8 bytes of scales a key in int8) and each byte
 //   feeds 2*G flops, far below the card's ~295 flop/byte ridge. Design: one
@@ -25,18 +30,21 @@
 //   slot), keys in 32-key shared-memory tiles up to the tile's causal bound,
 //   per-element causal mask, fp32 FMA (no tensor cores yet: mma/wgmma, TMA
 //   and split-K are later work). The ragged last query tile is masked in the
-//   kernel, so T needs no padding.
+//   kernel, so T needs no padding. The same window and multi-page variants
+//   as decode: a window walks keys from the floor of the tile's first query
+//   (page live iff (lp + 1) * page - 1 > first_q - window, :404-426).
 //
-// Both are the shared bodies of attention_common.cuh over PagedRows, in a
-// bf16 and an int8 instantiation. Each C entry launches on the caller's
-// stream and returns cudaGetLastError().
+// Both are the shared bodies of attention_common.cuh over PagedRows (ppb 1)
+// or PagedRunRows (ppb > 1), in a bf16 and an int8 instantiation for each
+// head width (128, 96); the window is a runtime argument. Each C entry launches on the caller's stream and
+// returns cudaGetLastError().
 #include "attention_common.cuh"
 
 using namespace pa;
 
 namespace {
 
-template <int G, typename KVT>
+template <int G, typename KVT, typename Rows>
 __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k_new,
         const bf16* __restrict__ v_new,
@@ -45,22 +53,27 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales,
         const int* __restrict__ page_table, const int* __restrict__ n_stale,
-        bf16* __restrict__ out, int KV, int page, int NP, float scale) {
-    __shared__ Smem<G> sm;
+        bf16* __restrict__ out, int KV, int page, int NP, float scale,
+        int window, int ppb) {
+    constexpr int HD = KVT::kHD;
+    __shared__ Smem<G, HD> sm;
     const int kv = blockIdx.x, b = blockIdx.y;
     // Query heads kv*G .. kv*G+G-1 of slot b are contiguous rows of q
     // [B, H, Dh] and of out [B, H*Dh] (the JAX kernel's qg reshape).
     const long long head0 = ((long long)b * KV + kv) * G;
-    const long long self_off = ((long long)b * KV + kv) * HEAD_DIM;
-    const PagedRows rows{page_table + (long long)b * NP, NP, page, KV, kv};
-    // Live stale keys: [0, n_stale[b]), never past the table's reach.
+    const long long self_off = ((long long)b * KV + kv) * HD;
+    const Rows rows = Rows::make(page_table + (long long)b * NP, NP, page,
+                                 KV, kv, ppb);
+    // Live stale keys: [w0, n_stale[b]), never past the table's reach; the
+    // query sits at position n_stale[b].
     const int n = min(n_stale[b], NP * page);
-    decode_body<G, KVT>(sm, q + head0 * HEAD_DIM, k_new + self_off,
+    const int w0 = window_floor(n_stale[b], window);
+    decode_body<G, KVT>(sm, q + head0 * HD, k_new + self_off,
                         v_new + self_off, k_pages, v_pages, k_scales,
-                        v_scales, rows, n, scale, out + head0 * HEAD_DIM);
+                        v_scales, rows, w0, n, scale, out + head0 * HD);
 }
 
-template <typename KVT>
+template <typename KVT, typename Rows>
 __global__ void __launch_bounds__(NTHREADS) paged_prefill_kernel(
         const bf16* __restrict__ q,
         const typename KVT::elem* __restrict__ k_pages,
@@ -69,32 +82,35 @@ __global__ void __launch_bounds__(NTHREADS) paged_prefill_kernel(
         const float* __restrict__ v_scales,
         const int* __restrict__ page_table, const int* __restrict__ start,
         bf16* __restrict__ out, int T, int H, int KV, int page, int NP,
-        float scale) {
-    __shared__ Smem<TILE_Q> sm;
+        float scale, int window, int ppb) {
+    constexpr int HD = KVT::kHD;
+    __shared__ Smem<TILE_Q, HD> sm;
     const int t0 = blockIdx.x * TILE_Q, h = blockIdx.y, b = blockIdx.z;
     const int kv = h / (H / KV);
     const int rows_in_tile = min(TILE_Q, T - t0);   // ragged last tile
     // q and out are [B, T, H, Dh]: consecutive positions H*Dh apart.
-    const long long stride = (long long)H * HEAD_DIM;
+    const long long stride = (long long)H * HD;
     const long long row0 = ((long long)b * T + t0) * stride
-                           + (long long)h * HEAD_DIM;
+                           + (long long)h * HD;
     const int first_q = start[b] + t0;
     const int n_keys = min(first_q + rows_in_tile, NP * page);
-    const PagedRows rows{page_table + (long long)b * NP, NP, page, KV, kv};
+    const Rows rows = Rows::make(page_table + (long long)b * NP, NP, page,
+                                 KV, kv, ppb);
     prefill_body<KVT>(sm, q + row0, stride, rows_in_tile, first_q, n_keys,
-                      k_pages, v_pages, k_scales, v_scales, rows, scale,
-                      out + row0);
+                      window, k_pages, v_pages, k_scales, v_scales, rows,
+                      scale, out + row0);
 }
 
-template <typename KVT>
+template <typename KVT, typename Rows>
 bool launch_decode(const void* q, const void* k_new, const void* v_new,
                    const void* k, const void* v, const void* ks,
                    const void* vs, const void* page_table,
                    const void* n_stale, void* out, int B, int G, int KV,
-                   int page, int NP, float scale, cudaStream_t stream) {
+                   int page, int NP, float scale, int window, int ppb,
+                   cudaStream_t stream) {
     using E = typename KVT::elem;
     return with_group(G, [&](auto g) {
-        paged_decode_kernel<decltype(g)::value, KVT>
+        paged_decode_kernel<decltype(g)::value, KVT, Rows>
             <<<dim3(KV, B), NTHREADS, 0, stream>>>(
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
                 static_cast<const bf16*>(v_new), static_cast<const E*>(k),
@@ -102,47 +118,63 @@ bool launch_decode(const void* q, const void* k_new, const void* v_new,
                 static_cast<const float*>(vs),
                 static_cast<const int*>(page_table),
                 static_cast<const int*>(n_stale), static_cast<bf16*>(out),
-                KV, page, NP, scale);
+                KV, page, NP, scale, window, ppb);
     });
 }
 
-template <typename KVT>
+template <typename KVT, typename Rows>
 void launch_prefill(const void* q, const void* k, const void* v,
                     const void* ks, const void* vs, const void* page_table,
                     const void* start, void* out, int B, int T, int H, int KV,
-                    int page, int NP, float scale, cudaStream_t stream) {
+                    int page, int NP, float scale, int window, int ppb,
+                    cudaStream_t stream) {
     using E = typename KVT::elem;
     const dim3 grid((T + TILE_Q - 1) / TILE_Q, H, B);
-    paged_prefill_kernel<KVT><<<grid, NTHREADS, 0, stream>>>(
+    paged_prefill_kernel<KVT, Rows><<<grid, NTHREADS, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(page_table),
         static_cast<const int*>(start), static_cast<bf16*>(out), T, H, KV,
-        page, NP, scale);
+        page, NP, scale, window, ppb);
+}
+
+// The body for (KV type and head width, pages_per_block): PagedRows reads
+// one table entry per page, PagedRunRows one per aligned run of ppb pages.
+// False for a head width the kernels are not built for.
+template <typename F>
+bool with_body(int quant, int head_dim, int ppb, F&& f) {
+    return with_kv_type(quant, head_dim, [&](auto kvt) {
+        return ppb == 1 ? f(kvt, PagedRows{}) : f(kvt, PagedRunRows{});
+    });
 }
 
 }  // namespace
 
+// The geometry both entries refuse: a window below 0, a run length below
+// 1, or a table width that does not split into whole runs.
+static bool bad_variant(int window, int ppb, int NP) {
+    return window < 0 || ppb < 1 || NP % ppb != 0;
+}
+
 // k/v: the pools (bf16, or int8 when `quant`); ks/vs: the int8 scales
-// [P, KV, 1, page] (ignored for bf16).
+// [P, KV, 1, page] (ignored for bf16); window: 0 or the sliding window;
+// ppb: pages_per_block (the table must be packed in runs of ppb).
 extern "C" int paged_decode_attention(
         const void* q, const void* k_new, const void* v_new, const void* k,
         const void* v, const void* ks, const void* vs,
         const void* page_table, const void* n_stale, void* out, int B, int H,
         int KV, int head_dim, int page, int NP, float scale, int quant,
-        void* stream) {
-    if (head_dim != HEAD_DIM || B < 0 || KV <= 0 || H % KV != 0 ||
-        page <= 0 || NP <= 0)
+        int window, int ppb, void* stream) {
+    if (B < 0 || KV <= 0 || H % KV != 0 || page <= 0 || NP <= 0 ||
+        bad_variant(window, ppb, NP))
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool ok = quant
-        ? launch_decode<Int8KV>(q, k_new, v_new, k, v, ks, vs, page_table,
-                                n_stale, out, B, H / KV, KV, page, NP, scale,
-                                s)
-        : launch_decode<Bf16KV>(q, k_new, v_new, k, v, ks, vs, page_table,
-                                n_stale, out, B, H / KV, KV, page, NP, scale,
-                                s);
+    const bool ok = with_body(quant, head_dim, ppb, [&](auto kvt, auto rows) {
+        return launch_decode<decltype(kvt), decltype(rows)>(
+            q, k_new, v_new, k, v, ks, vs, page_table, n_stale, out, B,
+            H / KV, KV, page, NP, scale, window, ppb, s);
+    });
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
@@ -151,18 +183,19 @@ extern "C" int paged_prefill_attention(
         const void* q, const void* k, const void* v, const void* ks,
         const void* vs, const void* page_table, const void* start, void* out,
         int B, int T, int H, int KV, int head_dim, int page, int NP,
-        float scale, int quant, void* stream) {
-    if (head_dim != HEAD_DIM || B < 0 || T < 0 || KV <= 0 || H % KV != 0 ||
-        page <= 0 || NP <= 0)
+        float scale, int quant, int window, int ppb, void* stream) {
+    if (B < 0 || T < 0 || KV <= 0 || H % KV != 0 || page <= 0 || NP <= 0 ||
+        bad_variant(window, ppb, NP))
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0 || T == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (quant)
-        launch_prefill<Int8KV>(q, k, v, ks, vs, page_table, start, out, B, T,
-                               H, KV, page, NP, scale, s);
-    else
-        launch_prefill<Bf16KV>(q, k, v, ks, vs, page_table, start, out, B, T,
-                               H, KV, page, NP, scale, s);
+    const bool ok = with_body(quant, head_dim, ppb, [&](auto kvt, auto rows) {
+        launch_prefill<decltype(kvt), decltype(rows)>(
+            q, k, v, ks, vs, page_table, start, out, B, T, H, KV, page, NP,
+            scale, window, ppb, s);
+        return true;
+    });
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
 

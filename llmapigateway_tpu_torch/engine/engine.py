@@ -35,6 +35,17 @@ in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
   (engine/paged.py): pool exhaustion is backpressure at admission, never a
   mid-generation failure. The contiguous layout owns a whole row per slot,
   so a free slot is enough.
+* **Sliding-window models** (mistral family) run the window variants of the
+  kernels on either layout. On the paged layout a slot holds a RING of
+  O(window) pages when that is smaller than its whole context: before each
+  prefill chunk and each decode burst, on the event-loop thread, the slot's
+  pages wholly below the window are recycled onto the logical pages the
+  dispatch will write (``_swa_map_chunks``, ``_swa_rotate``).
+* **Multi-page blocks** (``kv_pages_per_block``): the allocator packs each
+  slot's pages in aligned superpage runs and the paged kernels read one
+  table entry per run, when the geometry allows it (the resolved run length
+  is ``kv_ppb``; the SWA ring and non-divisible geometry fall back to 1, as
+  in the JAX engine).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking
 for ``cuda`` where there is none raises instead of running on the CPU.
@@ -144,19 +155,17 @@ def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
     if cfg.kv_quant not in ("", "int8"):
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}; expected "
                          f"'' | 'int8'")
-    # The prefix cache and multi-page blocks exist only over the page pool:
-    # the JAX engine treats both knobs as inert under the contiguous layout
-    # (config/schemas.py, engine.py:720 sits in its paged branch), so the
-    # port refuses them only where they would mean something. Otherwise a
-    # contiguous providers.json with the default prefix_cache=true would be
-    # served by the JAX package and refused here.
-    if cfg.kv_layout == "paged" and cfg.prefix_cache:
+    # The prefix cache exists only over the page pool, and there only for
+    # models without a sliding window: the JAX engine treats the knob as
+    # inert under the contiguous layout and for sliding-window models
+    # (engine.py:720-722 sits in its paged branch and requires
+    # `not c.sliding_window`), so the port refuses it only where it would
+    # mean something. Otherwise a contiguous or mistral providers.json with
+    # the default prefix_cache=true would be served by the JAX package and
+    # refused here.
+    if (cfg.kv_layout == "paged" and cfg.prefix_cache
+            and not model_cfg.sliding_window):
         raise _not_ported("prefix_cache=true", "prefix cache")
-    if cfg.kv_layout == "paged" and cfg.kv_pages_per_block != 1:
-        raise _not_ported(f"kv_pages_per_block={cfg.kv_pages_per_block}",
-                          "multi-page blocks")
-    if model_cfg.sliding_window:
-        raise _not_ported("a sliding-window model", "window variant")
     if cfg.spec_draft_len:
         raise _not_ported("spec_draft_len", "speculative decoding")
     if cfg.quant:
@@ -239,15 +248,66 @@ class InferenceEngine:
     def _init_state(self) -> None:
         c = self.model_cfg
         self.allocator: PageAllocator | None = None
+        self.kv_ppb = 1                 # multi-page kernel blocking (paged)
+        self._swa_ring_pages = 0        # pages a ring slot holds (0: no ring)
+        self._swa_margin = 0            # in-flight burst margin, tokens
         if self.paged:
             page = self.kv_page
             per_slot = (self.S + page - 1) // page
-            num_pages = self.cfg.kv_num_pages or (self.B * per_slot + 1)
-            if num_pages - 1 < per_slot:
+            # Sliding-window RING reservation: the windowed kernels never
+            # read below pos - window, so a ring of O(window) physical pages
+            # serves any context length (ensure_mapped recycles each slot's
+            # oldest dead page onto the next logical page). The JAX engine's
+            # sizing, margin included: decode_burst * (spec_k + 1) covers a
+            # lag-one burst still in flight there; the port has none (and no
+            # speculation), but keeps the formula so ring size and admission
+            # match the JAX engine's.
+            if c.sliding_window:
+                self._swa_margin = self.decode_burst * (
+                    self.cfg.spec_draft_len + 1)
+                span = max(self.prefill_chunk, self._swa_margin)
+                ring = -(-(c.sliding_window + self._swa_margin + span)
+                         // page) + 2
+                if ring < per_slot:
+                    self._swa_ring_pages = ring
+                    logger.info(
+                        "paged SWA ring: %d pages/slot (window %d) instead "
+                        "of %d — steady-state KV footprint is O(window)",
+                        ring, c.sliding_window, per_slot)
+            # Multi-page kernel blocking: the requested run length against
+            # what the pool can pack — the allocator's superpage runs are
+            # what license the kernels' one lookup per run, so a geometry
+            # the allocator cannot pack falls back to per-page blocks
+            # instead of serving wrong reads.
+            ppb_req = max(1, self.cfg.kv_pages_per_block)
+            if ppb_req > 1:
+                why = None
+                if self._swa_ring_pages:
+                    why = "SWA page ring (mappings rotate per page)"
+                elif per_slot % ppb_req:
+                    why = (f"pages per slot ({per_slot}) not divisible "
+                           f"by {ppb_req}")
+                elif (self.cfg.kv_num_pages
+                      and self.cfg.kv_num_pages % ppb_req):
+                    why = (f"kv_num_pages ({self.cfg.kv_num_pages}) not "
+                           f"divisible by {ppb_req}")
+                if why is None:
+                    self.kv_ppb = ppb_req
+                else:
+                    logger.warning(
+                        "kv_pages_per_block=%d falls back to per-page "
+                        "blocks: %s", ppb_req, why)
+            # A packed pool reserves the whole trash superpage.
+            n_trash = self.kv_ppb
+            num_pages = self.cfg.kv_num_pages or (
+                self.B * per_slot + n_trash)
+            min_hold = self._swa_ring_pages or per_slot
+            if num_pages - n_trash < min_hold:
                 raise ValueError(
-                    f"kv_num_pages={num_pages} cannot hold one max-footprint "
-                    f"sequence ({per_slot} pages of {page})")
-            self.allocator = PageAllocator(num_pages, page, self.B, self.S)
+                    f"kv_num_pages={num_pages} cannot hold one "
+                    f"max-footprint sequence ({min_hold} pages of {page})")
+            self.allocator = PageAllocator(num_pages, page, self.B, self.S,
+                                           pages_per_block=self.kv_ppb)
             self.cache = PagedKVCache.create(c, num_pages, page, self.dtype,
                                              kv_quant=self.kv_quant,
                                              device=self.device)
@@ -384,12 +444,14 @@ class InferenceEngine:
                 continue
             total = min(len(req.prompt_ids) + req.max_tokens, self.S)
             if self.allocator is not None:
-                if not self.allocator.can_admit(total):
+                if not self.allocator.can_admit(
+                        total, ring_pages=self._swa_ring_pages):
                     break
             self._head = None
             req.slot = self._free_slots.pop()
             if self.allocator is not None:
-                self.allocator.allocate(req.slot, total)
+                self.allocator.allocate(req.slot, total,
+                                        ring_pages=self._swa_ring_pages)
                 self._table_dirty = True
             req.prefill_pos = 0
             self._running[req.slot] = req
@@ -407,6 +469,8 @@ class InferenceEngine:
                      if not r.cancelled]
             if not batch:
                 continue
+            if self._swa_ring_pages:
+                self._swa_map_chunks(batch)
             dones = await asyncio.to_thread(self._prefill_chunk_group, batch)
             for req, prompt_done in zip(batch, dones):
                 if prompt_done:
@@ -427,6 +491,8 @@ class InferenceEngine:
                 burst = min(burst, self.S - ub,
                             max(1, r.max_tokens - dispatched))
             burst = max(1, burst)
+            if self._swa_ring_pages:
+                self._swa_rotate(decoding, burst)
             step_tokens = await asyncio.to_thread(self._decode_burst, burst)
             for tokens in step_tokens:          # in generation order
                 for req in decoding:
@@ -439,6 +505,38 @@ class InferenceEngine:
                 self._head is not None or not self._queue.empty()):
             progressed = True   # slots freed this step while admissions wait
         return progressed
+
+    # -- the sliding-window ring (event-loop thread, before dispatch) ---------
+    def _swa_map_chunks(self, reqs: list[GenRequest]) -> None:
+        """Map the pages each request's next prompt chunk writes by
+        recycling pages wholly below the chunk's window floor (no in-flight
+        margin: a prefilling slot has no decode burst of its own in flight,
+        and other slots' bursts touch only their own table rows)."""
+        page = self.allocator.page_size
+        for req in reqs:
+            pos = req.prefill_pos
+            n = min(self.prefill_chunk, len(req.prompt_ids) - pos)
+            dead = max(0, pos - self.model_cfg.sliding_window + 1) // page
+            if self.allocator.ensure_mapped(req.slot, (pos + n - 1) // page,
+                                            dead):
+                self._table_dirty = True
+
+    def _swa_rotate(self, decoding: list[GenRequest], advance: int) -> None:
+        """Before a decode burst, map the logical pages it will write (from
+        each slot's length through ``advance`` more positions) by recycling
+        pages wholly below the window floor less the burst margin. The
+        JAX engine adds its in-flight lag-one burst to the position; the
+        port runs none, so the dispatch-true length is the position."""
+        page = self.allocator.page_size
+        w = self.model_cfg.sliding_window
+        changed = False
+        for r in decoding:
+            pos = int(self.lengths[r.slot])
+            dead = max(0, pos - self._swa_margin - w + 1) // page
+            changed |= self.allocator.ensure_mapped(
+                r.slot, (pos + advance) // page, dead)
+        if changed:
+            self._table_dirty = True
 
     # -- compute (worker thread; no asyncio objects touched) ------------------
     def _prefill_chunk_group(self, reqs: list[GenRequest]) -> list[bool]:
@@ -497,10 +595,12 @@ class InferenceEngine:
         slot_idx = self._to_device(np.asarray(slots, np.int64))
         last_idx = self._to_device(
             np.asarray([len(ch) - 1 for ch in chunks], np.int64))
+        window = self.model_cfg.sliding_window
         if self.paged:
-            attn = make_paged_attention_fn(self._device_table()[slot_idx])
+            attn = make_paged_attention_fn(self._device_table()[slot_idx],
+                                           window, self.kv_ppb)
         else:
-            attn = make_cache_attention_fn(slot_idx.int())
+            attn = make_cache_attention_fn(slot_idx.int(), window)
         hidden, self.cache = forward_hidden(
             self.params, self.model_cfg, tokens, start, self.cache,
             attention_fn=attn)
@@ -554,8 +654,10 @@ class InferenceEngine:
                 frequency_penalty=self._to_device(self.samp_frequency))
             self._d_dirty = False
         greedy = self._all_greedy()
-        attn = (make_paged_attention_fn(self._device_table()) if self.paged
-                else make_cache_attention_fn())
+        window = self.model_cfg.sliding_window
+        attn = (make_paged_attention_fn(self._device_table(), window,
+                                        self.kv_ppb) if self.paged
+                else make_cache_attention_fn(window=window))
         tokens, lengths, active = self._d_tokens, self._d_lengths, \
             self._d_active
         out = []

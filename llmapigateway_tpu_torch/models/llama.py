@@ -13,6 +13,11 @@
   the deferred-insert protocol: at T == 1 the ``.decode`` attends the
   STALE cache plus a self column and every layer's K/V is written once
   after the loop by ``.insert_all``; T > 1 chunks insert, then attend.
+* Sliding-window models (mistral family; ``config.sliding_window``) use HF
+  Mistral semantics: key ``j`` is visible to the query at position ``i``
+  iff ``i - j < window``, the query itself included. The kernels' providers
+  carry the window themselves; ``forward`` swaps the plain dense provider
+  for :func:`windowed_dense_attention`.
 * The contiguous cache, its inserts and the int8 KV quantizer live here,
   as in the JAX package; a cache side is a tensor or the int8
   ``{"q", "s"}`` dict.
@@ -22,6 +27,7 @@
 from __future__ import annotations
 
 import math
+from functools import lru_cache, partial
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -297,11 +303,13 @@ def _kv_dequant_views(layer_k, layer_v, dtype):
 def dense_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, layer_k, layer_v,
                            lengths: torch.Tensor,
-                           active: torch.Tensor | None = None
-                           ) -> torch.Tensor:
+                           active: torch.Tensor | None = None,
+                           window: int = 0) -> torch.Tensor:
     """Deferred-insert decode attention: one query token against the STALE
     cache prefix ``[0, lengths)`` plus the new token itself (self column,
-    full precision under int8 KV), through the shared block math. Writes
+    full precision under int8 KV), through the shared block math. With a
+    sliding ``window`` the query at position ``lengths`` sees stale keys
+    ``j > lengths - window`` (the self column is always inside). Writes
     nothing.
 
     q [B,1,H,Dh]; k_new/v_new [B,1,KV,Dh]; layer_k/v [B,KV,S,Dh] (stale) or
@@ -313,17 +321,19 @@ def dense_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     lk, ks, lv, vs = _kv_dequant_views(layer_k, layer_v, q.dtype)
     n_stale = lengths if active is None else torch.where(active, lengths, 0)
     out = decode_core(q[:, 0], k_new[:, 0], v_new[:, 0], lk, lv, n_stale,
-                      ks, vs)
+                      ks, vs, window)
     return out.reshape(B, 1, H * Dh)
 
 
 def dense_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
                           v_new: torch.Tensor, layer_k, layer_v,
                           lengths: torch.Tensor,
-                          active: torch.Tensor | None = None):
+                          active: torch.Tensor | None = None,
+                          window: int = 0):
     """Reference cache attention in plain PyTorch (the flash kernels replace
     it on the card — ops/flash_attention.py): insert the chunk IN PLACE,
-    then causal attention over the whole cache row.
+    then causal attention over the whole cache row (with a sliding
+    ``window``: the query at ``i`` sees keys ``j`` with ``i - j < window``).
 
     q [B, T, H, Dh] (RoPE applied); k_new/v_new [B, T, KV, Dh];
     layer_k/v [B, KV, S, Dh] or the int8 dicts; lengths [B] (insert offset).
@@ -332,7 +342,7 @@ def dense_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
     layer_k, layer_v = insert_kv(layer_k, layer_v, k_new, v_new, lengths,
                                  active)
     lk, ks, lv, vs = _kv_dequant_views(layer_k, layer_v, q.dtype)
-    out = causal_core(q, lk, lv, lengths, ks, vs, active)
+    out = causal_core(q, lk, lv, lengths, ks, vs, active, window)
     return out, layer_k, layer_v
 
 
@@ -341,6 +351,20 @@ def dense_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
 # step through insert_kv_stacked.
 dense_cache_attention.decode = dense_decode_attention
 dense_cache_attention.insert_all = insert_kv_stacked
+
+
+@lru_cache(maxsize=8)
+def windowed_dense_attention(window: int):
+    """The plain dense provider with a sliding-window bound on both paths
+    (chunk and deferred decode) — ``forward_hidden`` swaps it in for
+    ``config.sliding_window`` models. Memoized so the provider is one
+    object per window."""
+    def fn(q, k_new, v_new, layer_k, layer_v, lengths, active=None):
+        return dense_cache_attention(q, k_new, v_new, layer_k, layer_v,
+                                     lengths, active, window=window)
+    fn.decode = partial(dense_decode_attention, window=window)
+    fn.insert_all = insert_kv_stacked
+    return fn
 
 
 _GATE_ACTS = {
@@ -382,13 +406,16 @@ def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
     norm: (hidden [B, T, D], cache). The pool in ``cache`` is updated in
     place. tokens [B, T] int; lengths [B] int32 (tokens already cached per
     slot); active [B] bool (inactive slots compute but write to the trash
-    page)."""
+    page). A sliding-window model's window is threaded through the plain
+    dense provider here; the kernels' providers carry it themselves."""
     c = config
     B, T = tokens.shape
     dh = c.head_dim
-    if c.sliding_window or c.is_moe:
-        raise ValueError("sliding-window and MoE models are not ported to "
-                         "the PyTorch forward yet")
+    if c.is_moe:
+        raise ValueError("MoE models are not ported to the PyTorch forward "
+                         "yet")
+    if c.sliding_window and attention_fn is dense_cache_attention:
+        attention_fn = windowed_dense_attention(c.sliding_window)
 
     x = params["embed"][tokens.long()]                          # [B, T, D]
     if c.scale_embed:

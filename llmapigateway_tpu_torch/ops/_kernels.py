@@ -30,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-HEAD_DIM = 128                      # the kernels' compiled head width
+HEAD_DIMS = (96, 128)               # head widths the kernels are compiled for
 GROUP_SIZES = (1, 2, 4, 8, 16)      # query heads per KV head the decode kernels take
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -114,15 +114,15 @@ def library(name: str) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "paged_attention":
         lib.paged_decode_attention.argtypes = (
-            [ptr] * 10 + [i32] * 6 + [f32, i32, ptr])
+            [ptr] * 10 + [i32] * 6 + [f32] + [i32] * 3 + [ptr])
         lib.paged_prefill_attention.argtypes = (
-            [ptr] * 8 + [i32] * 7 + [f32, i32, ptr])
+            [ptr] * 8 + [i32] * 7 + [f32] + [i32] * 3 + [ptr])
         entries = ("paged_decode_attention", "paged_prefill_attention")
     else:
         lib.flash_decode_attention.argtypes = (
-            [ptr] * 10 + [i32] * 5 + [f32, i32, ptr])
+            [ptr] * 10 + [i32] * 5 + [f32] + [i32] * 2 + [ptr])
         lib.flash_prefill_attention.argtypes = (
-            [ptr] * 8 + [i32] * 6 + [f32, i32, ptr])
+            [ptr] * 8 + [i32] * 6 + [f32] + [i32] * 2 + [ptr])
         entries = ("flash_decode_attention", "flash_prefill_attention")
     for entry in entries:
         getattr(lib, entry).restype = i32
@@ -150,43 +150,49 @@ def _ptr(t: torch.Tensor | None):
 
 # Each launcher takes (values, scales) pairs for K and V — scales None for a
 # bf16 cache — and tensors whose shapes, types and devices the wrapper
-# (ops/paged_attention.py, ops/flash_attention.py) has checked.
+# (ops/paged_attention.py, ops/flash_attention.py) has checked; ``window``
+# (0: full causal) and, for the paged kernels, ``ppb`` (pages_per_block)
+# select the variant.
 
 def launch_paged_decode(q, k_new, v_new, k, v, quant, page_table, n_stale,
-                        out) -> None:
+                        out, window: int, ppb: int) -> None:
     B, H, Dh = q.shape
     KV, page = k[0].shape[1], k[0].shape[2]
     _call("paged_attention", "paged_decode_attention", q.device,
           q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[0].data_ptr(),
           v[0].data_ptr(), _ptr(k[1]), _ptr(v[1]), page_table.data_ptr(),
           n_stale.data_ptr(), out.data_ptr(),
-          B, H, KV, Dh, page, page_table.shape[1], Dh ** -0.5, int(quant))
+          B, H, KV, Dh, page, page_table.shape[1], Dh ** -0.5, int(quant),
+          window, ppb)
 
 
-def launch_paged_prefill(q, k, v, quant, page_table, start, out) -> None:
+def launch_paged_prefill(q, k, v, quant, page_table, start, out,
+                         window: int, ppb: int) -> None:
     B, T, H, Dh = q.shape
     KV, page = k[0].shape[1], k[0].shape[2]
     _call("paged_attention", "paged_prefill_attention", q.device,
           q.data_ptr(), k[0].data_ptr(), v[0].data_ptr(), _ptr(k[1]),
           _ptr(v[1]), page_table.data_ptr(), start.data_ptr(), out.data_ptr(),
-          B, T, H, KV, Dh, page, page_table.shape[1], Dh ** -0.5, int(quant))
+          B, T, H, KV, Dh, page, page_table.shape[1], Dh ** -0.5, int(quant),
+          window, ppb)
 
 
 def launch_flash_decode(q, k_new, v_new, k, v, quant, rows, n_stale,
-                        out) -> None:
+                        out, window: int) -> None:
     B, H, Dh = q.shape
     KV, S = k[0].shape[1], k[0].shape[2]
     _call("flash_attention", "flash_decode_attention", q.device,
           q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[0].data_ptr(),
           v[0].data_ptr(), _ptr(k[1]), _ptr(v[1]), _ptr(rows),
           n_stale.data_ptr(), out.data_ptr(),
-          B, H, KV, Dh, S, Dh ** -0.5, int(quant))
+          B, H, KV, Dh, S, Dh ** -0.5, int(quant), window)
 
 
-def launch_flash_prefill(q, k, v, quant, rows, start, out) -> None:
+def launch_flash_prefill(q, k, v, quant, rows, start, out,
+                         window: int) -> None:
     B, T, H, Dh = q.shape
     KV, S = k[0].shape[1], k[0].shape[2]
     _call("flash_attention", "flash_prefill_attention", q.device,
           q.data_ptr(), k[0].data_ptr(), v[0].data_ptr(), _ptr(k[1]),
           _ptr(v[1]), _ptr(rows), start.data_ptr(), out.data_ptr(),
-          B, T, H, KV, Dh, S, Dh ** -0.5, int(quant))
+          B, T, H, KV, Dh, S, Dh ** -0.5, int(quant), window)

@@ -28,10 +28,17 @@ Both kernels also take an optional row map ``rows`` ``[B]``: query row
 for K slots works on the cache in place (the JAX engine slices each slot's
 rows out and scatters them back, engine.py:1006-1025).
 
+Every attention function takes ``window``: a sliding window (mistral
+family, HF semantics — key ``j`` is visible to the query at position ``i``
+iff ``i - j < window``, the query itself included), 0 for full causal
+attention. The kernels then walk only the keys inside the window.
+
 Each wrapper counts its kernel launches in a plain integer attribute
-(``flash_decode_attention.launches``), incremented only where the kernel is
-launched; it launches the kernel for a CUDA tensor, takes the plain version
-for a CPU tensor, and raises for anything else — it never falls back.
+(``flash_decode_attention.launches``), and per kernel variant in the dict
+``.variant_launches`` (``"full"``, ``"window"``; see :func:`variant_name`),
+both incremented only where the kernel is launched; it launches the kernel
+for a CUDA tensor, takes the plain version for a CPU tensor, and raises for
+anything else — it never falls back.
 """
 from __future__ import annotations
 
@@ -98,18 +105,23 @@ def split_kv(layer):
 def decode_core(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                 k: torch.Tensor, v: torch.Tensor, n_stale: torch.Tensor,
                 ks: torch.Tensor | None = None,
-                vs: torch.Tensor | None = None) -> torch.Tensor:
+                vs: torch.Tensor | None = None,
+                window: int = 0) -> torch.Tensor:
     """One query per row against its stale keys ``[0, n_stale)`` plus the
-    self column. q [B, H, Dh]; k_new/v_new [B, KV, Dh]; k/v [B, KV, S, Dh];
-    ks/vs [B, KV, 1, S] or None. GQA is grouped (queries [B, KV, G, Dh]),
-    never repeated. Returns [B, H*Dh] in q.dtype."""
+    self column; with a ``window``, only keys ``j > n_stale - window`` (the
+    query sits at position ``n_stale``; the self column is always inside).
+    q [B, H, Dh]; k_new/v_new [B, KV, Dh]; k/v [B, KV, S, Dh]; ks/vs
+    [B, KV, 1, S] or None. GQA is grouped (queries [B, KV, G, Dh]), never
+    repeated. Returns [B, H*Dh] in q.dtype."""
     B, H, Dh = q.shape
     KV, S = k.shape[1], k.shape[2]
     qg = q.reshape(B, KV, H // KV, Dh)
     m, l, acc = self_column_init(qg, k_new[:, :, None], v_new[:, :, None])
     if S:
-        visible = (torch.arange(S, device=q.device)[None, :]
-                   < n_stale[:, None])
+        pos = torch.arange(S, device=q.device)[None, :]
+        visible = pos < n_stale[:, None]
+        if window:
+            visible = visible & (pos > n_stale[:, None] - window)
         m, l, acc = attend_block(qg, k, v, m, l, acc,
                                  visible[:, None, None, :], ks, vs)
     return (acc / l).reshape(B, H * Dh).to(q.dtype)
@@ -118,20 +130,24 @@ def decode_core(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
 def causal_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 start: torch.Tensor, ks: torch.Tensor | None = None,
                 vs: torch.Tensor | None = None,
-                active: torch.Tensor | None = None) -> torch.Tensor:
-    """Causal attention of a chunk over keys already in the cache. q
-    [B, T, H, Dh] at positions ``start + t``; k/v [B, KV, S, Dh]; ks/vs
-    [B, KV, 1, S] or None → [B, T, H*Dh] in q.dtype. A row with nothing
-    visible gives 0, not NaN (the Pallas prefill kernel's ``l == 0``
-    guard)."""
+                active: torch.Tensor | None = None,
+                window: int = 0) -> torch.Tensor:
+    """Causal attention of a chunk over keys already in the cache (with a
+    ``window``, key ``s`` is visible to the query at ``p`` iff
+    ``p - window < s <= p``). q [B, T, H, Dh] at positions ``start + t``;
+    k/v [B, KV, S, Dh]; ks/vs [B, KV, 1, S] or None → [B, T, H*Dh] in
+    q.dtype. A row with nothing visible gives 0, not NaN (the Pallas prefill
+    kernel's ``l == 0`` guard)."""
     B, T, H, Dh = q.shape
     KV, S = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, T, KV, G, Dh).permute(0, 2, 3, 1, 4).reshape(
         B, KV, G * T, Dh)
     q_pos = start.long()[:, None] + torch.arange(T, device=q.device)
-    visible = (torch.arange(S, device=q.device)[None, None, :]
-               <= q_pos[:, :, None])                               # [B, T, S]
+    s_pos = torch.arange(S, device=q.device)[None, None, :]
+    visible = s_pos <= q_pos[:, :, None]                           # [B, T, S]
+    if window:
+        visible = visible & (s_pos > q_pos[:, :, None] - window)
     if active is not None:
         visible = visible & active[:, None, None]
     visible = visible[:, None].expand(B, G, T, S).reshape(B, 1, G * T, S)
@@ -156,17 +172,17 @@ def _rows_view(layer, rows: torch.Tensor | None, n: int):
 
 
 def _flash_decode_plain(q, k_new, v_new, layer_k, layer_v, n_stale,
-                        rows=None):
+                        rows=None, window=0):
     """The decode kernel's function in plain PyTorch (fp32 math), keys
     limited to the longest row's live prefix."""
     S = split_kv(layer_k)[0].shape[2]
     n = min(S, int(n_stale.max())) if q.shape[0] else 0
     k, ks = _rows_view(layer_k, rows, n)
     v, vs = _rows_view(layer_v, rows, n)
-    return decode_core(q, k_new, v_new, k, v, n_stale, ks, vs)
+    return decode_core(q, k_new, v_new, k, v, n_stale, ks, vs, window)
 
 
-def _flash_prefill_plain(q, layer_k, layer_v, start, rows=None):
+def _flash_prefill_plain(q, layer_k, layer_v, start, rows=None, window=0):
     """The prefill kernel's function in plain PyTorch: causal attention of
     the chunk over the cache (its own keys already inserted), keys limited
     to the cache extent and the chunk's last query position."""
@@ -175,7 +191,7 @@ def _flash_prefill_plain(q, layer_k, layer_v, start, rows=None):
     n = min(S, int(start.max()) + T) if B else 0
     k, ks = _rows_view(layer_k, rows, n)
     v, vs = _rows_view(layer_v, rows, n)
-    return causal_core(q, k, v, start, ks, vs)
+    return causal_core(q, k, v, start, ks, vs, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +250,9 @@ def check_kernel_args(name: str, acts: dict, kv: dict, ints: dict) -> bool:
 
 def check_geometry(name: str, H: int, KV: int, Dh: int, values_shape,
                    ) -> None:
-    if Dh != _kernels.HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {Dh} unsupported; the kernel is "
-                         f"built for {_kernels.HEAD_DIM}")
+    if Dh not in _kernels.HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {Dh} unsupported; the kernels "
+                         f"are built for {_kernels.HEAD_DIMS}")
     if KV <= 0 or H % KV or (H // KV) not in _kernels.GROUP_SIZES:
         raise ValueError(f"{name}: {H} query heads over {KV} KV heads; the "
                          f"kernel takes groups of {_kernels.GROUP_SIZES}")
@@ -252,6 +268,31 @@ def _check_rows(name: str, rows, B: int) -> None:
                          f"batch {B}")
 
 
+def check_window(name: str, window: int) -> None:
+    if window < 0:
+        raise ValueError(f"{name}: window must be >= 0 (0 = full causal), "
+                         f"got {window}")
+
+
+def variant_name(window: int, pages_per_block: int = 1) -> str:
+    """The kernel body a launch ran: ``"full"`` or ``"window"``, and for a
+    multi-page paged launch ``"_ppb<n>"`` after it."""
+    name = "window" if window else "full"
+    return name if pages_per_block == 1 else f"{name}_ppb{pages_per_block}"
+
+
+def count_launch(fn, variant: str) -> None:
+    """One kernel launch of wrapper ``fn``'s body ``variant``: the total
+    ``fn.launches`` and ``fn.variant_launches[variant]``."""
+    fn.launches += 1
+    fn.variant_launches[variant] = fn.variant_launches.get(variant, 0) + 1
+
+
+def reset_launches(fn) -> None:
+    fn.launches = 0
+    fn.variant_launches = {}
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
@@ -259,7 +300,8 @@ def _check_rows(name: str, rows, B: int) -> None:
 def flash_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, layer_k, layer_v,
                            n_stale: torch.Tensor,
-                           rows: torch.Tensor | None = None) -> torch.Tensor:
+                           rows: torch.Tensor | None = None, *,
+                           window: int = 0) -> torch.Tensor:
     """Ragged single-token attention over a STALE contiguous cache plus the
     new token (self column folded into the online-softmax init).
 
@@ -267,14 +309,17 @@ def flash_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     cache; full precision under int8 KV); layer_k/v: [Bc, KV, S, Dh] or the
     int8 ``{"q","s"}`` dicts; n_stale: [B] int32 (the query's position; 0
     for a fresh or inactive slot); rows: optional [B] int32 cache row of
-    each query row (default: row b). Returns [B, H*Dh] in q.dtype.
+    each query row (default: row b); window: sliding window (0 = full) —
+    the kernel reads only the stale keys inside it. Returns [B, H*Dh] in
+    q.dtype.
     """
+    name = "flash_decode_attention"
+    check_window(name, window)
     if q.device.type == "cpu":
         return _flash_decode_plain(q, k_new, v_new, layer_k, layer_v,
-                                   n_stale, rows)
+                                   n_stale, rows, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: no kernel for {q.device}")
-    name = "flash_decode_attention"
     B, H, Dh = q.shape
     KV = k_new.shape[1]
     kq = split_kv(layer_k)[0]
@@ -290,17 +335,18 @@ def flash_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     out = torch.empty((B, H * Dh), dtype=q.dtype, device=q.device)
     _kernels.launch_flash_decode(q, k_new, v_new, split_kv(layer_k),
                                  split_kv(layer_v), quant, rows, n_stale,
-                                 out)
-    flash_decode_attention.launches += 1
+                                 out, window)
+    count_launch(flash_decode_attention, variant_name(window))
     return out
 
 
-flash_decode_attention.launches = 0
+reset_launches(flash_decode_attention)
 
 
 def flash_prefill_attention(q: torch.Tensor, layer_k, layer_v,
                             start: torch.Tensor,
-                            rows: torch.Tensor | None = None) -> torch.Tensor:
+                            rows: torch.Tensor | None = None, *,
+                            window: int = 0) -> torch.Tensor:
     """Causal chunk attention over a contiguous cache (the chunk's keys
     already inserted at ``[start, start+T)``).
 
@@ -308,13 +354,15 @@ def flash_prefill_attention(q: torch.Tensor, layer_k, layer_v,
     masks the ragged tail of its last query tile; positions past the cache
     extent see the whole cache and are the caller's pads); layer_k/v:
     [Bc, KV, S, Dh] or the int8 dicts; start: [B] int32; rows: optional
-    [B] int32 cache rows. Returns [B, T, H*Dh] in q.dtype.
+    [B] int32 cache rows; window: sliding window (0 = full causal). Returns
+    [B, T, H*Dh] in q.dtype.
     """
+    name = "flash_prefill_attention"
+    check_window(name, window)
     if q.device.type == "cpu":
-        return _flash_prefill_plain(q, layer_k, layer_v, start, rows)
+        return _flash_prefill_plain(q, layer_k, layer_v, start, rows, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill_attention: no kernel for {q.device}")
-    name = "flash_prefill_attention"
     B, T, H, Dh = q.shape
     kq = split_kv(layer_k)[0]
     KV = kq.shape[1]
@@ -328,21 +376,22 @@ def flash_prefill_attention(q: torch.Tensor, layer_k, layer_v,
                               {"start": start, "rows": rows})
     out = torch.empty((B, T, H * Dh), dtype=q.dtype, device=q.device)
     _kernels.launch_flash_prefill(q, split_kv(layer_k), split_kv(layer_v),
-                                  quant, rows, start, out)
-    flash_prefill_attention.launches += 1
+                                  quant, rows, start, out, window)
+    count_launch(flash_prefill_attention, variant_name(window))
     return out
 
 
-flash_prefill_attention.launches = 0
+reset_launches(flash_prefill_attention)
 
 
 # ---------------------------------------------------------------------------
 # attention_fn adapter (models/llama.py forward contract)
 # ---------------------------------------------------------------------------
 
-def make_cache_attention_fn(rows: torch.Tensor | None = None):
+def make_cache_attention_fn(rows: torch.Tensor | None = None,
+                            window: int = 0):
     """Build an ``attention_fn`` over the contiguous cache, backed by the
-    flash kernels. The call is the prefill chunk path (insert, then attend
+    flash kernels, with the model's sliding ``window`` (0 = full causal). The call is the prefill chunk path (insert, then attend
     with the causal kernel); ``.decode`` is the deferred decode (stale cache
     plus self column in the ragged GQA kernel, no insert) and ``.insert_all``
     the one stacked insert after the layer loop (models/llama.py
@@ -360,14 +409,16 @@ def make_cache_attention_fn(rows: torch.Tensor | None = None):
     def attention_fn(q, k_new, v_new, layer_k, layer_v, lengths,
                      active=None):
         insert_kv(layer_k, layer_v, k_new, v_new, lengths, active, rows)
-        out = flash_prefill_attention(q, layer_k, layer_v, lengths, rows)
+        out = flash_prefill_attention(q, layer_k, layer_v, lengths, rows,
+                                      window=window)
         return out, layer_k, layer_v
 
     def decode(q, k_new, v_new, layer_k, layer_v, lengths, active=None):
         n_stale = lengths if active is None else torch.where(
             active, lengths, 0)
         out = flash_decode_attention(q[:, 0], k_new[:, 0], v_new[:, 0],
-                                     layer_k, layer_v, n_stale, rows)
+                                     layer_k, layer_v, n_stale, rows,
+                                     window=window)
         return out[:, None, :]
 
     def insert_all(cache_k, cache_v, k_news, v_news, lengths, active):

@@ -25,9 +25,19 @@ Kernels (``csrc/paged_attention.cu``, built and bound by ops/_kernels.py):
 * :func:`paged_prefill_attention` replaces ``paged_prefill_attention`` /
   ``_paged_prefill_kernel`` (:438, :384).
 
+Both take the two variants of the Pallas kernels: ``window`` (a sliding
+window, 0 = full causal; pages below it are never read, so the engine's SWA
+page ring may recycle them) and ``pages_per_block`` (a PACKED table: every
+aligned run of ppb logical pages maps onto ppb contiguous physical pages at
+a ppb-aligned start — what the allocator's superpage packing produces — so
+the kernel reads one table entry per run; the output is bit-for-bit that of
+``pages_per_block=1``).
+
 Each wrapper counts its kernel launches in a plain integer attribute
-(``paged_decode_attention.launches``), incremented only where the kernel is
-launched, so a run can show that its main path went through the kernels.
+(``paged_decode_attention.launches``) and per variant in
+``.variant_launches`` (``"full"``, ``"window"``, ``"full_ppb2"``, ...),
+incremented only where the kernel is launched, so a run can show that its
+main path went through the kernel body it meant to.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ from ..models.config import ModelConfig
 from ..models.llama import quantize_kv, zeros_kv
 from . import _kernels
 from .flash_attention import (causal_core, check_geometry, check_kernel_args,
-                              decode_core, split_kv)
+                              check_window, count_launch, decode_core,
+                              reset_launches, split_kv, variant_name)
 
 
 class PagedKVCache(NamedTuple):
@@ -171,31 +182,52 @@ def dequant_gathered(d, dtype):
 # Plain versions of the two kernels
 # ---------------------------------------------------------------------------
 
+def _check_pages_per_block(ppb: int, NP: int, P: int) -> None:
+    """Static geometry gate for the multi-page kernels (the JAX package's,
+    same messages): the table width and the pool's page count must both
+    split into whole runs. That every aligned run of the table is packed —
+    ``pt[b, g·ppb + i] == pt[b, g·ppb] + i`` with ``pt[b, g·ppb] % ppb ==
+    0`` — is the caller's promise; the engine's superpage-packing allocator
+    (engine/paged.py ``pages_per_block``) keeps it, and the engine falls
+    back to per-page blocks whenever it cannot (SWA ring, non-divisible
+    geometry)."""
+    if ppb < 1:
+        raise ValueError(f"pages_per_block must be >= 1, got {ppb}")
+    if ppb > 1 and (NP % ppb or P % ppb):
+        raise ValueError(
+            f"pages_per_block={ppb} needs the page-table width ({NP}) and "
+            f"the pool's page count ({P}) divisible by it")
+
+
 def _paged_decode_plain(q, k_new, v_new, k_pages, v_pages, page_table,
-                        n_stale):
+                        n_stale, window=0):
     """The decode kernel's function in plain PyTorch: the stale pool up to
-    ``n_stale`` plus the self column, all in fp32 (the Pallas kernel
-    accumulates P·V in fp32). Gathers pages up to the longest slot's last
-    live one; a shorter slot's dead positions are masked out."""
+    ``n_stale`` (from the window's floor) plus the self column, all in fp32
+    (the Pallas kernel accumulates P·V in fp32). Gathers pages up to the
+    longest slot's last live one; a shorter slot's dead positions, and
+    positions below a slot's window, are masked out. On the packed table
+    that pages_per_block > 1 requires, the per-page gather reads the same
+    pages as the multi-page kernel."""
     page, NP = split_kv(k_pages)[0].shape[2], page_table.shape[1]
     n_max = int(n_stale.max()) if q.shape[0] else 0
     S = min(NP, -(-n_max // page)) * page
     k, ks = split_kv(gather_pages(k_pages, page_table, S))
     v, vs = split_kv(gather_pages(v_pages, page_table, S))
-    return decode_core(q, k_new, v_new, k, v, n_stale, ks, vs)
+    return decode_core(q, k_new, v_new, k, v, n_stale, ks, vs, window)
 
 
-def _paged_prefill_plain(q, k_pages, v_pages, page_table, start):
-    """The prefill kernel's function in plain PyTorch: causal attention of
-    the chunk over the pool (its own keys already inserted), keys limited to
-    the table's reach and to the chunk's last query position."""
+def _paged_prefill_plain(q, k_pages, v_pages, page_table, start, window=0):
+    """The prefill kernel's function in plain PyTorch: causal (and, with a
+    window, banded) attention of the chunk over the pool (its own keys
+    already inserted), keys limited to the table's reach and to the chunk's
+    last query position."""
     B, T = q.shape[:2]
     page, NP = split_kv(k_pages)[0].shape[2], page_table.shape[1]
     last = int(start.max()) + T if B else 0
     S = min(NP * page, last)
     k, ks = split_kv(gather_pages(k_pages, page_table, S))
     v, vs = split_kv(gather_pages(v_pages, page_table, S))
-    return causal_core(q, k, v, start, ks, vs)
+    return causal_core(q, k, v, start, ks, vs, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -211,21 +243,27 @@ def _check_table(name: str, page_table: torch.Tensor, B: int) -> None:
 def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, k_pages, v_pages,
                            page_table: torch.Tensor,
-                           n_stale: torch.Tensor) -> torch.Tensor:
+                           n_stale: torch.Tensor, *, window: int = 0,
+                           pages_per_block: int = 1) -> torch.Tensor:
     """Ragged single-token attention over the STALE page pool plus the new
     token (self column folded into the online-softmax init).
 
     q: [B, H, Dh] (RoPE applied); k_new/v_new: [B, KV, Dh];
     k_pages/v_pages: [P, KV, page, Dh] or the int8 ``{"q","s"}`` dicts;
     page_table: [B, NP] int32; n_stale: [B] int32 (the query's position; 0
-    for a fresh or inactive slot). Returns [B, H*Dh] in q.dtype.
+    for a fresh or inactive slot); window: sliding window (0 = full) — only
+    pages inside it are read; pages_per_block: run length of a packed table
+    (see :func:`_check_pages_per_block`). Returns [B, H*Dh] in q.dtype.
     """
+    name = "paged_decode_attention"
+    check_window(name, window)
+    _check_pages_per_block(pages_per_block, page_table.shape[1],
+                           split_kv(k_pages)[0].shape[0])
     if q.device.type == "cpu":
         return _paged_decode_plain(q, k_new, v_new, k_pages, v_pages,
-                                   page_table, n_stale)
+                                   page_table, n_stale, window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
-    name = "paged_decode_attention"
     B, H, Dh = q.shape
     KV = k_new.shape[1]
     kq = split_kv(k_pages)[0]
@@ -241,29 +279,36 @@ def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     out = torch.empty((B, H * Dh), dtype=q.dtype, device=q.device)
     _kernels.launch_paged_decode(q, k_new, v_new, split_kv(k_pages),
                                  split_kv(v_pages), quant, page_table,
-                                 n_stale, out)
-    paged_decode_attention.launches += 1
+                                 n_stale, out, window, pages_per_block)
+    count_launch(paged_decode_attention,
+                 variant_name(window, pages_per_block))
     return out
 
 
-paged_decode_attention.launches = 0
+reset_launches(paged_decode_attention)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
                             page_table: torch.Tensor,
-                            start: torch.Tensor) -> torch.Tensor:
+                            start: torch.Tensor, *, window: int = 0,
+                            pages_per_block: int = 1) -> torch.Tensor:
     """Causal chunk attention over the page pool (keys already inserted).
 
     q: [B, T, H, Dh] at absolute positions ``start + t`` (any T: the kernel
     masks the ragged tail of its last query tile); k_pages/v_pages:
     [P, KV, page, Dh] or the int8 dicts; page_table: [B, NP] int32; start:
-    [B] int32. Returns [B, T, H*Dh] in q.dtype.
+    [B] int32; window, pages_per_block: as :func:`paged_decode_attention`.
+    Returns [B, T, H*Dh] in q.dtype.
     """
+    name = "paged_prefill_attention"
+    check_window(name, window)
+    _check_pages_per_block(pages_per_block, page_table.shape[1],
+                           split_kv(k_pages)[0].shape[0])
     if q.device.type == "cpu":
-        return _paged_prefill_plain(q, k_pages, v_pages, page_table, start)
+        return _paged_prefill_plain(q, k_pages, v_pages, page_table, start,
+                                    window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: no kernel for {q.device}")
-    name = "paged_prefill_attention"
     B, T, H, Dh = q.shape
     kq = split_kv(k_pages)[0]
     KV = kq.shape[1]
@@ -276,17 +321,21 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
                               {"page_table": page_table, "start": start})
     out = torch.empty((B, T, H * Dh), dtype=q.dtype, device=q.device)
     _kernels.launch_paged_prefill(q, split_kv(k_pages), split_kv(v_pages),
-                                  quant, page_table, start, out)
-    paged_prefill_attention.launches += 1
+                                  quant, page_table, start, out, window,
+                                  pages_per_block)
+    count_launch(paged_prefill_attention,
+                 variant_name(window, pages_per_block))
     return out
 
 
-paged_prefill_attention.launches = 0
+reset_launches(paged_prefill_attention)
 
 
-def make_paged_attention_fn(page_table: torch.Tensor):
+def make_paged_attention_fn(page_table: torch.Tensor, window: int = 0,
+                            pages_per_block: int = 1):
     """Build an ``attention_fn`` (models/llama.py ``forward`` contract) over
-    the paged pool, closing over the page table.
+    the paged pool, closing over the page table, the model's sliding
+    ``window`` (0 = full causal) and the table's ``pages_per_block``.
 
     The call itself is the prefill chunk path (insert-then-attend); the
     ``.decode`` attribute is the deferred decode (stale pool + self column,
@@ -301,14 +350,17 @@ def make_paged_attention_fn(page_table: torch.Tensor):
         paged_insert_kv(layer_k, layer_v, k_new, v_new, page_table,
                         lengths, active)
         out = paged_prefill_attention(q, layer_k, layer_v, page_table,
-                                      lengths)
+                                      lengths, window=window,
+                                      pages_per_block=pages_per_block)
         return out, layer_k, layer_v
 
     def decode(q, k_new, v_new, layer_k, layer_v, lengths, active=None):
         n_stale = lengths if active is None else torch.where(
             active, lengths, 0)
         out = paged_decode_attention(q[:, 0], k_new[:, 0], v_new[:, 0],
-                                     layer_k, layer_v, page_table, n_stale)
+                                     layer_k, layer_v, page_table, n_stale,
+                                     window=window,
+                                     pages_per_block=pages_per_block)
         return out[:, None, :]
 
     def insert_all(pool_k, pool_v, k_news, v_news, lengths, active):

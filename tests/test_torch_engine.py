@@ -260,15 +260,15 @@ def test_emission_matches_jax_engine(engines, stop, max_tokens):
 @pytest.mark.parametrize("knob,item", [
     ({"prefix_cache": True}, "prefix cache"),
     ({"kv_quant": "int8", "spec_draft_len": 3}, "speculative decoding"),
-    ({"kv_pages_per_block": 2}, "multi-page blocks"),
-    ({"kv_layout": "contiguous", "preset": "tiny-mistral-test"},
-     "window variant"),
+    ({"kv_pages_per_block": 2, "prefix_cache": True}, "prefix cache"),
+    ({"preset": "tiny-mistral-test", "spec_draft_len": 2},
+     "speculative decoding"),
     ({"spec_draft_len": 3}, "speculative decoding"),
     ({"quant": "int8"}, "weight quantization"),
     ({"mesh": {"model": 2}}, "parallelism"),
     ({"model_path": "/nonexistent"}, "checkpoints"),
     ({"disaggregation": {"enabled": True}}, "disaggregation"),
-    ({"preset": "tiny-mistral-test"}, "window variant"),
+    ({"preset": "tiny-mistral-test", "mesh": {"model": 2}}, "parallelism"),
     ({"preset": "tiny-moe-test"}, "MoE"),
 ])
 def test_unported_knobs_are_refused_at_build(knob, item):
