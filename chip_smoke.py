@@ -10,19 +10,20 @@ Phases, each printed as JSON lines:
 1. device  — ``nvidia-smi`` name and power limit, ``torch.cuda`` name.
 2. build   — every CUDA source in ``llmapigateway_tpu_torch/csrc/``
              compiled for sm_90a, one ``nvcc`` per source, all started
-             together (build time, and ptxas's registers, shared memory
-             and spills per kernel).
+             together (build time, ptxas's registers and spills per
+             kernel, and each body's shared memory).
 3. kernel  — each kernel body's wrapper against its plain PyTorch version
              on the same card tensors at the main path's shapes: the paged
              kernels over a page pool, the flash kernels over a contiguous
              cache, each with a bf16 cache and with an int8 cache and its
-             fp32 scales; full attention at llama-3-8b heads, the window
-             variants at mistral-7b (window 4096 over 8192 positions) and
-             phi-3-mini (MHA, 96-wide heads, window 2047) heads over a
-             ring-like table
-             whose pages below the window are the trash page, and the
-             multi-page variants (pages_per_block 2 and 4) on a packed,
-             shuffled table, each bit-for-bit the per-page kernel's output.
+             fp32 scales; full attention at llama-3-8b, tinyllama-1.1b
+             (64-wide heads) and gemma-2b (256-wide, one KV head) heads, the
+             window variants at mistral-7b (window 4096 over 8192
+             positions) and phi-3-mini (MHA, 96-wide heads, window 2047)
+             heads over a ring-like table whose pages below the window are
+             the trash page, and the multi-page variants (pages_per_block 2
+             and 4) on a packed, shuffled table, each bit-for-bit the
+             per-page kernel's output.
              Per-element error against the fp32 plain output under the
              stated relative + absolute tolerance, and times (CUDA events,
              median of 25 runs with L2 flushed before each) beside the plain
@@ -31,8 +32,13 @@ Phases, each printed as JSON lines:
              banded mask; timed only — the port never calls it; no library
              call takes int8 K/V with per-key scales) and the least time the
              card could take for the keys the kernel must read. Then every
-             group size and head width the kernels are built for, with and
-             without a window, held the same way, for every kernel body.
+             group size (1, 2, 3, 4, 7, 8, 16) and head width (64, 96, 128,
+             256) the kernels are built for, with and without a window, held
+             the same way, for every kernel body. Then kernel #5, the
+             decode step's one-row KV insert, ``torch.equal`` to its plain
+             version and to ``index_put_`` at the insert tool's shape and at
+             llama-3-8b's, timed beside both, its bound and an empty
+             kernel's launch.
 4. model   — two-layer models of llama-3-8b head geometry through the
              port's forward on the card (kernels) against the same weights
              through the plain path on the CPU in fp32, on both layouts and
@@ -40,24 +46,36 @@ Phases, each printed as JSON lines:
              over 16-token pages; a packed pool read two pages a run; and
              the LM head at llama-3-8b's shape, which must give fp32 logits
              equal to the fp32 product of its bf16 operands.
-5. serve   — the port's aiohttp app in-process on a local port, once per
+5. tools   — the three engine-driving tools (llmapigateway_tpu_torch/tools/)
+             with their default flags at tinyllama-1.1b width and depth:
+             every KV-insert variant, kernel #5 launched twice per layer
+             per step and its caches equal to index_put's; the decode
+             ablation with the kernels' attention (kernel #3 once per layer
+             per step); the engine's bursts on both layouts.
+6. serve   — the port's aiohttp app in-process on a local port, once per
              served configuration (SERVE_RUNS): llama-3-8b on both layouts
              and cache types and with two- and four-page blocks, mistral-7b
-             (contiguous; paged through the SWA page ring; paged with
-             multi-page blocks over a context the ring would not shrink)
-             and phi-3-mini (int8, the same three ways), each at full width
-             and depth with random weights from a seed, each engine stopped
-             and its memory freed before the next is built. 2 SSE + 2 JSON
+             (both cache types: contiguous; paged through the SWA page ring;
+             paged with multi-page blocks over a context the ring would not
+             shrink), phi-3-mini (both cache types, contiguous and through
+             the ring; int8 with multi-page blocks), tinyllama-1.1b and
+             gemma-2b (256-wide heads, one KV head) on both layouts and
+             cache types, qwen2-0.5b (a group of 7) and gemma-7b (256-wide
+             heads, a group of 1), each at full width and depth with random
+             weights from a seed, each engine stopped and its memory freed
+             before the next is built: every body of the kernel phase's
+             timed rows runs at its own head geometry. 2 SSE + 2 JSON
              concurrent requests, all admitted in the engine's first step.
              Launch counters are zeroed just before each run and read just
              after: the layout's kernels must have run their configured body
-             (window, pages per block) once per layer per forward of their
-             kind (a one-token prefill call runs the decode kernel), and no
-             other body or layout's kernel at all. On the ring runs the ring
+             (window, pages per block, KV type) at the model's head width
+             and group once per layer per forward of their kind (a one-token
+             prefill call runs the decode kernel), and no other body or
+             layout's kernel at all. On the ring runs the ring
              rotates in prefill and in decode, no slot ever holds more than
              the ring, and every page comes back. Pairs of runs that read
              the same values in the same order must stream the same text.
-6. the ``kernels`` line, the nvidia-smi line, and last the contract line
+7. the ``kernels`` line, the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA card,
@@ -98,8 +116,10 @@ KERNEL_ATOL = 2.0 ** -14
 # built for, each held to the plain version at H 32 and a batch of long and
 # short slots, with full attention and with a window that is no multiple of
 # the key tile or the page.
+# A group that does not divide 32 heads (3, 7) takes H = G * KV at the KV
+# head count given here (llama-3b-class's 24 over 8, qwen2-0.5b's 14 over 2).
 GROUP_CASES = dict(B=4, H=32, n_stale=[0, 257, 1000, 4095], T=100,
-                   starts=[0, 1000], windows=[0, 700])
+                   starts=[0, 1000], windows=[0, 700], kv_for_group={3: 8, 7: 2})
 # LM head: fp32 logits from bf16 operands, against the fp32 product of the
 # same values; a bf16 rounding of the logits (2^-9 of the largest) fails.
 HEAD_REL_TOL = 2.0 ** -12
@@ -128,6 +148,25 @@ SHAPES = {
              n_stale=[0, 1, 2046, 2047, 2048, 3000, 3500, 4095]),
         dict(H=32, KV=32, Dh=96, page=256, NP=16, S=4096, window=2047,
              starts=[0, 2000, 3500], T=(512,))),
+    # The head widths 64 (tinyllama, G 8) and 256 (gemma-2b, MQA: G 8 over
+    # one KV head).
+    "tinyllama-1.1b": (
+        dict(B=8, H=32, KV=4, Dh=64, page=256, NP=8, S=2048, window=0,
+             n_stale=[0, 1, 255, 256, 257, 1000, 1500, 2047]),
+        dict(H=32, KV=4, Dh=64, page=256, NP=8, S=2048, window=0,
+             starts=[0, 256, 1000], T=(512,))),
+    "gemma-2b": (
+        dict(B=8, H=8, KV=1, Dh=256, page=256, NP=16, S=4096, window=0,
+             n_stale=[0, 1, 255, 256, 257, 1000, 2047, 4095]),
+        dict(H=8, KV=1, Dh=256, page=256, NP=16, S=4096, window=0,
+             starts=[0, 256, 1000], T=(512,))),
+}
+# Kernel #5 (the decode step's one-row KV insert): at the insert tool's
+# default shape (tinyllama-1.1b's cache, tools/profile_insert.py) and at
+# llama-3-8b's contiguous one, with lengths at 0, mid-page and S - 1.
+INSERT_SHAPES = {
+    "tinyllama-1.1b": dict(B=8, KV=4, S=1024, Dh=64),
+    "llama-3-8b": dict(B=8, KV=8, S=4096, Dh=128),
 }
 # The multi-page bodies (pages_per_block 2 and 4) of the paged kernels, on a
 # table packed for 4: at llama-3-8b shape and at mistral-7b's windowed one.
@@ -209,6 +248,61 @@ SERVE_RUNS = [  # (tag, engine config, prompts: ("chars"|"tokens", lengths))
        {**PHI3_PPB, **PAGED, "kv_pages_per_block": ppb, "kv_quant": "int8"},
        ("tokens", PHI3_PPB_PROMPT_TOKENS)) for ppb in PPBS],
 ]
+# Every other head width and group the presets have, at full width and
+# depth: tinyllama-1.1b (Dh 64, G 8), qwen2-0.5b (Dh 64, G 7, QKV bias),
+# gemma-2b (Dh 256, MQA) and gemma-7b (Dh 256, G 1).
+TINYLLAMA = {"preset": "tinyllama-1.1b", "max_batch_size": 8,
+             "max_seq_len": 2048, "prefill_chunk": 512, "mesh": {}}
+QWEN2 = {"preset": "qwen2-0.5b", "max_batch_size": 8, "max_seq_len": 4096,
+         "prefill_chunk": 512, "mesh": {}}
+GEMMA2B = {"preset": "gemma-2b", "max_batch_size": 8, "max_seq_len": 4096,
+           "prefill_chunk": 512, "mesh": {}}
+GEMMA7B = {"preset": "gemma-7b", "max_batch_size": 8, "max_seq_len": 4096,
+           "prefill_chunk": 512, "mesh": {}}
+SERVE_RUNS += [
+    ("tinyllama-contiguous-bf16", {**TINYLLAMA, "kv_layout": "contiguous",
+                                   "kv_quant": ""},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("qwen2-paged-bf16", {**QWEN2, **PAGED, "prefix_cache": False,
+                          "kv_quant": ""}, ("chars", LLAMA_PROMPT_CHARS)),
+    ("gemma2b-contiguous-int8", {**GEMMA2B, "kv_layout": "contiguous",
+                                 "kv_quant": "int8"},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("gemma7b-paged-bf16", {**GEMMA7B, **PAGED, "prefix_cache": False,
+                            "kv_quant": ""}, ("chars", LLAMA_PROMPT_CHARS)),
+]
+# The other KV type of the window models, and of tinyllama-1.1b and
+# gemma-2b on both layouts: with these, every body the kernel phase times
+# runs on a served path at the head width and group of its row.
+SERVE_RUNS += [
+    ("mistral-contiguous-int8", {**MISTRAL, "kv_layout": "contiguous",
+                                 "kv_quant": "int8"},
+     ("tokens", MISTRAL_PROMPT_TOKENS)),
+    ("mistral-paged-int8-ring", {**MISTRAL, **PAGED, "kv_quant": "int8",
+                                 "kv_num_pages": 8 * MISTRAL_RING + 1},
+     ("tokens", MISTRAL_PROMPT_TOKENS)),
+    *[(f"mistral-paged-int8-ppb{ppb}",
+       {**MISTRAL_PPB, **PAGED, "kv_pages_per_block": ppb,
+        "kv_quant": "int8"}, ("tokens", MISTRAL_PPB_PROMPT_TOKENS))
+      for ppb in PPBS],
+    ("phi3-contiguous-bf16", {**PHI3, "kv_layout": "contiguous",
+                              "kv_quant": ""}, ("tokens", PHI3_PROMPT_TOKENS)),
+    ("phi3-paged-bf16-ring", {**PHI3, **PAGED, "kv_quant": "",
+                              "kv_num_pages": 8 * PHI3_RING + 1},
+     ("tokens", PHI3_PROMPT_TOKENS)),
+    ("tinyllama-contiguous-int8", {**TINYLLAMA, "kv_layout": "contiguous",
+                                   "kv_quant": "int8"},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    *[(f"tinyllama-paged-{kv or 'bf16'}",
+       {**TINYLLAMA, **PAGED, "prefix_cache": False, "kv_quant": kv},
+       ("chars", LLAMA_PROMPT_CHARS)) for kv in ("", "int8")],
+    ("gemma2b-contiguous-bf16", {**GEMMA2B, "kv_layout": "contiguous",
+                                 "kv_quant": ""},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    *[(f"gemma2b-paged-{kv or 'bf16'}",
+       {**GEMMA2B, **PAGED, "prefix_cache": False, "kv_quant": kv},
+       ("chars", LLAMA_PROMPT_CHARS)) for kv in ("", "int8")],
+]
 SERVE_MAX_TOKENS = 32
 # Pairs of runs that read the same values in the same order (the layouts'
 # kernels walk the same key tiles; the two-page body reads the per-page
@@ -220,26 +314,11 @@ SAME_TEXT = [("mistral-contiguous-bf16", "mistral-paged-bf16-ring"),
              ("paged-int8", "llama-paged-int8-ppb2"),
              ("paged-int8", "llama-paged-int8-ppb4"),
              ("mistral-paged-bf16-ppb2", "mistral-paged-bf16-ppb4"),
-             ("phi3-paged-int8-ppb2", "phi3-paged-int8-ppb4")]
+             ("phi3-paged-int8-ppb2", "phi3-paged-int8-ppb4"),
+             ("mistral-contiguous-int8", "mistral-paged-int8-ring"),
+             ("phi3-contiguous-bf16", "phi3-paged-bf16-ring"),
+             ("mistral-paged-int8-ppb2", "mistral-paged-int8-ppb4")]
 FREED_BYTES_MAX = 2 ** 30
-# The serve run whose traffic drives each kernel body, by (layout, kv,
-# variant).
-SERVE_OF = {
-    ("paged", "bf16", "full"): "paged-bf16",
-    ("paged", "int8", "full"): "paged-int8",
-    ("contiguous", "bf16", "full"): "contiguous-bf16",
-    ("contiguous", "int8", "full"): "contiguous-int8",
-    **{("paged", kv, f"full_ppb{ppb}"): f"llama-paged-{kv}-ppb{ppb}"
-       for kv in ("bf16", "int8") for ppb in PPBS},
-    **{("paged", "bf16", f"window_ppb{ppb}"): f"mistral-paged-bf16-ppb{ppb}"
-       for ppb in PPBS},
-    **{("paged", "int8", f"window_ppb{ppb}"): f"phi3-paged-int8-ppb{ppb}"
-       for ppb in PPBS},
-    ("paged", "bf16", "window"): "mistral-paged-bf16-ring",
-    ("contiguous", "bf16", "window"): "mistral-contiguous-bf16",
-    ("paged", "int8", "window"): "phi3-paged-int8-ring",
-    ("contiguous", "int8", "window"): "phi3-contiguous-int8",
-}
 SOURCES = {"paged": "paged_attention.cu", "contiguous": "flash_attention.cu"}
 REPLACES = {
     ("decode", "paged"): "llmapigateway_tpu/ops/paged_attention.py:272",
@@ -273,6 +352,24 @@ def nvidia_smi_line() -> str:
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
+def body_smem_bytes(head_dims) -> dict:
+    """Each attention body's shared memory, ``sizeof(Smem<R, HD>)`` by its
+    layout (csrc/attention_common.cuh; ptxas does not report the dynamic
+    shared memory of the bodies above 48 KiB): R rows of HD/2 + 1 words of
+    queries and scores, a
+    32-key tile of K and V, the tile's int8 scales and m/l/alpha per row —
+    decode R = 1 .. 16 (groups rounded up to a power of two), prefill R =
+    the query tile (32 at HD 256, else 64)."""
+    def size(R, HD):
+        words = HD // 2 + 1
+        return 4 * (R * words + 2 * 32 * words + R * 33 + 2 * 32 + 3 * R)
+    out = {}
+    for HD in head_dims:
+        out[f"prefill Dh{HD}"] = size(32 if HD > 128 else 64, HD)
+        out[f"decode Dh{HD} G16"] = size(16, HD)
+    return out
+
+
 def cuda_ms(torch, fn, iters: int = 25, warmup: int = 3) -> float:
     """Median ms of ``fn`` on the card: a CUDA event pair per run, L2
     flushed (a 128 MB write) before each, as the main path finds each
@@ -290,6 +387,34 @@ def cuda_ms(torch, fn, iters: int = 25, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(torch, fn, n: int = 100, reps: int = 5) -> float:
+    """Device ms per call of ``fn``, for calls too short for one event pair
+    to time: ``n`` calls captured in a CUDA graph, the graph replayed
+    ``reps`` times between events, the median over ``n`` (no host work
+    between the calls; L2 warm)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -501,7 +626,7 @@ def _timed_rows(torch, ks, kind, layout, quant, shape, args, window, ppbs,
         torch.cuda.synchronize()
         err = held(torch, f"{name}{tag}", got, ref)
         res = {"phase": "kernel", "name": name, "fn": ks.name(kind, layout),
-               "kind": kind, "layout": layout,
+               "kind": kind, "layout": layout, "model": shape,
                "kv": "int8" if quant else "bf16", "window": window,
                "pages_per_block": ppb, "shape": shape_info, **err,
                "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}
@@ -615,16 +740,15 @@ def check_prefill(torch, ks, gen, layout, quant, shape, T: int,
 
 
 def check_groups(torch, ks, group_sizes, head_dims, gen) -> list[dict]:
-    """Every group size (H 32 over H/G KV heads) and head width the kernels
-    are built for, every kernel body (paged and contiguous, bf16 and int8,
-    decode and prefill, full and windowed), held to the plain versions. Not
-    timed."""
+    """Every group size (H 32 over H/G KV heads; H = G * KV for a group
+    that does not divide 32) and head width the kernels are built for,
+    every kernel body (paged and contiguous, bf16 and int8, decode and
+    prefill, full and windowed), held to the plain versions. Not timed."""
     c = GROUP_CASES
-    H = c["H"]
     rows = []
     for Dh in head_dims:
         for G in group_sizes:
-            KV = H // G
+            KV = c["kv_for_group"].get(G, c["H"] // G)
             for layout in ("paged", "contiguous"):
                 for quant in (False, True):
                     for window in c["windows"]:
@@ -641,14 +765,15 @@ def check_groups(torch, ks, group_sizes, head_dims, gen) -> list[dict]:
 
 
 def _group_case(torch, ks, gen, c, Dh, G, KV, layout, quant, window):
-    H = c["H"]
+    H = G * KV
     dargs = decode_inputs(torch, gen, layout, quant, c["B"], H, KV,
                           c["n_stale"], Dh, window=window)
     pargs = prefill_inputs(torch, gen, layout, quant, c["T"], H, KV,
                            c["starts"], Dh, window=window)
     tag = (f"{layout} {'int8' if quant else 'bf16'} Dh={Dh} G={G} "
            f"window={window}")
-    return {"Dh": Dh, "G": G, "KV": KV, "layout": layout, "window": window,
+    return {"Dh": Dh, "G": G, "H": H, "KV": KV, "layout": layout,
+            "window": window,
             "kv": "int8" if quant else "bf16",
             "decode": held(torch, f"decode {tag}",
                            ks.call("decode", layout, dargs, window),
@@ -658,6 +783,63 @@ def _group_case(torch, ks, gen, c, Dh, G, KV, layout, quant, window):
                             ks.call("prefill", layout, pargs, window),
                             ks.call_plain("prefill", layout, _fp32(pargs),
                                           window))}
+
+
+def check_insert(torch, gen, shape: str) -> dict:
+    """Kernel #5 at ``INSERT_SHAPES[shape]``: ``torch.equal`` to its plain
+    version (the one-hot select) and to ``index_put_`` on the same card
+    tensors (a copy has no rounding), then timed beside both, the bound and
+    an empty kernel on the same stream (its real floor). An 8 KB copy is
+    far below what one event pair resolves, so ``ms``, ``plain_ms``,
+    ``library_ms`` and ``launch_floor_ms`` are device times per call from a
+    CUDA graph of 100 calls (``graph_ms``); ``single_launch_ms`` and
+    ``single_floor_ms`` time one call after an L2 flush (``cuda_ms``), host
+    gaps and launch latency included."""
+    from llmapigateway_tpu_torch.ops import _kernels
+    from llmapigateway_tpu_torch.tools import profile_insert as pi
+    d = INSERT_SHAPES[shape]
+    B, KV, S, Dh = d["B"], d["KV"], d["S"], d["Dh"]
+    cache = torch.randn((B, KV, S, Dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    new = torch.randn((B, 1, KV, Dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lens = [0, 1, 128, 255, 256 + 128, S // 2, S - 2, S - 1]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ref = pi.insert_onehot(cache, new, lengths)
+    lib = pi.insert_index_put(cache.clone(), new, lengths)
+    got = pi.insert_kernel(cache.clone(), new, lengths)
+    torch.cuda.synchronize()
+    name = "kv_insert" if shape == "tinyllama-1.1b" else f"kv_insert[{shape}]"
+    work = cache.clone()
+    n_bytes = new.nbytes + B * KV * Dh * cache.element_size() \
+        + lengths.nbytes
+    bound_ms, bound_by = bound(n_bytes, 0)
+    res = {"phase": "kernel", "name": name, "model": shape,
+           "shape": {**d, "lengths": lens},
+           "equal_to_plain": bool(torch.equal(got, ref)),
+           "equal_to_index_put": bool(torch.equal(got, lib)),
+           "max_abs_err": (got.float() - ref.float()).abs().max().item()}
+
+    def kernel():
+        pi.insert_kernel(work, new, lengths)
+
+    def empty():
+        _kernels.launch_empty(work.device)
+    res.update({
+        "ms": graph_ms(torch, kernel),
+        "plain_ms": graph_ms(torch, lambda: pi.insert_onehot(work, new,
+                                                             lengths)),
+        "library_ms": graph_ms(torch, lambda: pi.insert_index_put(
+            work, new, lengths)),
+        "launch_floor_ms": graph_ms(torch, empty),
+        "single_launch_ms": cuda_ms(torch, kernel),
+        "single_floor_ms": cuda_ms(torch, empty),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": n_bytes})
+    emit(res)
+    check(res["equal_to_plain"] and res["equal_to_index_put"],
+          f"{name}: kernel #5 differs from its plain version or index_put_: "
+          f"{res}")
+    return res
 
 
 def kernel_phase(torch, ks, gen) -> list[dict]:
@@ -801,7 +983,80 @@ def check_head(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: serve /v1/chat/completions at full width, per configuration
+# Phase 5: the engine-driving tools at tinyllama-1.1b width and depth
+# ---------------------------------------------------------------------------
+
+def tools_phase(torch, ks) -> dict:
+    """The three ported tools with their default flags (tinyllama-1.1b, 22
+    layers, d_model 2048, on the card): every insert variant, kernel #5's
+    launches counted (2 per layer per step of its burst runs) and its final
+    caches ``torch.equal`` to the index_put variant's; the decode ablation
+    with the kernels' attention (kernel #3 once per layer per step); the
+    engine's bursts on both layouts (their decode kernels only)."""
+    from llmapigateway_tpu_torch.models.config import get_preset
+    from llmapigateway_tpu_torch.ops.flash_attention import (body_name,
+                                                            reset_launches)
+    from llmapigateway_tpu_torch.tools import (profile_decode,
+                                               profile_engine_burst,
+                                               profile_insert)
+    cfg = get_preset("tinyllama-1.1b")
+    L = cfg.n_layers
+    out = {}
+
+    reset_launches(profile_insert.insert_kernel)
+    ins = profile_insert.main([])
+    launches = profile_insert.insert_kernel.launches
+    out["profile_insert"] = {**ins, "kernel_launches": launches}
+    want = 2 * ins["dims"]["layers"] * ins["steps"].get("cuda", 0)
+    check(set(ins["ms_per_step"]) == {"index_put", "onehot", "cuda",
+                                      "stacked"},
+          f"profile_insert: variants {sorted(ins['ms_per_step'])}")
+    check(launches == want > 0,
+          f"profile_insert: kernel #5 launched {launches} times, expected "
+          f"2 x {ins['dims']['layers']} layers x {ins['steps'].get('cuda')} "
+          f"steps = {want}")
+    check(ins.get("cuda_equals_index_put") is True,
+          "profile_insert: the cuda burst's caches differ from index_put's")
+
+    for fn in ks.all_wrappers():
+        reset_launches(fn)
+    dec = profile_decode.main(["--kernels"])
+    steps = 32 * (1 + 3)             # default --burst 32: warm-up + 3 reps
+    flash = ks.fn[("decode", "contiguous")]
+    out["profile_decode"] = {"ms_per_step": dec,
+                             "flash_decode_launches": flash.launches}
+    body = body_name(0, 1, False, cfg.head_dim,
+                     cfg.n_heads // cfg.n_kv_heads)
+    check(flash.body_launches == {body: L * steps},
+          f"profile_decode --kernels: kernel #3 ran "
+          f"{flash.body_launches}, expected {{{body!r}: {L * steps}}}")
+
+    for kv, layout in (("contiguous", "contiguous"), ("paged", "paged")):
+        for fn in ks.all_wrappers():
+            reset_launches(fn)
+        res = profile_engine_burst.main(["--kv", kv])
+        launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
+        out[f"profile_engine_burst[{kv}]"] = {**res, "launches": launches}
+        decode_k = ks.name("decode", layout)
+        want = L * (res["decode_steps"] + res["raw_steps"])
+        check(launches[decode_k] == want,
+              f"profile_engine_burst --kv {kv}: {decode_k} ran "
+              f"{launches[decode_k]} times, expected {want} "
+              f"({res['decode_steps']} engine + {res['raw_steps']} raw "
+              f"steps, x {L} layers)")
+        other = "paged" if layout == "contiguous" else "contiguous"
+        check(all(launches[ks.name(k, other)] == 0
+                  for k in ("decode", "prefill")),
+              f"profile_engine_burst --kv {kv}: the {other} kernels ran "
+              f"{launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "tools", **out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: serve /v1/chat/completions at full width, per configuration
 # ---------------------------------------------------------------------------
 
 def _free_port() -> int:
@@ -866,8 +1121,8 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
 
     from llmapigateway_tpu_torch.config.loader import ConfigLoader
     from llmapigateway_tpu_torch.config.settings import Settings
-    from llmapigateway_tpu_torch.ops.flash_attention import (
-        reset_launches, variant_name)
+    from llmapigateway_tpu_torch.ops.flash_attention import (body_name,
+                                                            reset_launches)
     from llmapigateway_tpu_torch.providers.local import make_local_provider
     from llmapigateway_tpu_torch.server.app import build_app
     from llmapigateway_tpu_torch.utils.sse import SSEParser
@@ -964,15 +1219,17 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
             torch.cuda.synchronize()
             wall_s = time.monotonic() - t1
             launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
-            variants = {fn.__name__: dict(fn.variant_launches)
-                        for fn in ks.all_wrappers()}
+            bodies = {fn.__name__: dict(fn.body_launches)
+                      for fn in ks.all_wrappers()}
             steps = {"decode_steps": engine.decode_steps,
                      "prefill_calls": engine.prefill_calls,
                      "prefill_one_token_calls":
                      engine.prefill_one_token_calls}
+            mc = engine.model_cfg
             geometry = {"kv_ppb": engine.kv_ppb,
                         "swa_ring_pages": engine._swa_ring_pages,
-                        "window": window}
+                        "window": window, "head_dim": mc.head_dim,
+                        "group": mc.n_heads // mc.n_kv_heads}
             if engine.paged:
                 alloc = engine.allocator
                 alloc.check_invariants()
@@ -1002,21 +1259,23 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
     decode_k = ks.name("decode", layout)
     prefill_k = ks.name("prefill", layout)
     other = "contiguous" if layout == "paged" else "paged"
-    variant = variant_name(window, geometry["kv_ppb"])
+    body = body_name(window, geometry["kv_ppb"],
+                     engine_cfg["kv_quant"] == "int8", geometry["head_dim"],
+                     geometry["group"])
     check(launches[decode_k] > 0,
           f"serve {tag}: the decode kernel never ran on the main path")
     check(launches[prefill_k] > 0,
           f"serve {tag}: the prefill kernel never ran on the main path")
     # A prefill call one token wide runs the decode kernel (the forward's
     # T == 1 path); every other prefill call runs the prefill kernel. Every
-    # launch is of the configured body.
+    # launch is of the configured body at the model's head geometry.
     one_tok = steps["prefill_one_token_calls"]
     want = {decode_k: n_layers * (steps["decode_steps"] + one_tok),
             prefill_k: n_layers * (steps["prefill_calls"] - one_tok)}
     for name, n in want.items():
-        check(variants[name] == {variant: n},
-              f"serve {tag}: {name} ran {variants[name]}, expected "
-              f"{{{variant!r}: {n}}} ({n_layers} layers x {steps})")
+        check(bodies[name] == {body: n},
+              f"serve {tag}: {name} ran {bodies[name]}, expected "
+              f"{{{body!r}: {n}}} ({n_layers} layers x {steps})")
     for kind in ("decode", "prefill"):
         name = ks.name(kind, other)
         check(launches[name] == 0,
@@ -1048,7 +1307,7 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
            "ttft_ms": [u.get("ttft_ms") for u in usages],
            "decode_tok_per_s": [u.get("tokens_per_sec") for u in usages],
            "engine_build_s": build_s, "wall_s": wall_s,
-           "launches": launches, "variant_launches": variants, **steps,
+           "launches": launches, "body_launches": bodies, **steps,
            "note": "TTFT and tok/s are information only"}
     emit(res)
     res["texts"] = [r["text"] for r in results]
@@ -1088,30 +1347,60 @@ def serve_phase(torch, ks, card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
-def kernels_line(kernel_rows: list[dict], serve: dict) -> dict:
+def kernels_line(kernel_rows: list[dict], serve: dict,
+                 insert_rows: list[dict], tools: dict) -> dict:
     """One row per kernel body and shape: a prefill body's times are its
     first chunk length's (T 512), its error the largest over both.
-    ``launches`` counts the body's launches in the serve run whose traffic
-    drives it (``serve``); every body must have run there."""
-    from llmapigateway_tpu_torch.ops.flash_attention import variant_name
+    ``launches`` counts the launches of the row's body at the row's head
+    width and group in the serve run of the row's model, layout, KV type
+    and pages per block (``serve``); every body must have run there. Kernel
+    #5's row is timed at the insert tool's shape, its error the largest
+    over both shapes, its launches those of the tools phase."""
+    from llmapigateway_tpu_torch.ops.flash_attention import body_name
     rows = {}
     for r in kernel_rows:
         if r["name"] in rows:
             row = rows[r["name"]]
             row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
             continue
-        variant = variant_name(r["window"], r["pages_per_block"])
-        run = SERVE_OF[(r["layout"], r["kv"], variant)]
-        launches = serve[run]["variant_launches"][r["fn"]].get(variant, 0)
-        check(launches > 0, f"{r['name']}: its body never ran on the main "
-                            f"path of serve run {run}")
+        shape = r["shape"]
+        body = body_name(r["window"], r["pages_per_block"], r["kv"] == "int8",
+                         shape["Dh"], shape["H"] // shape["KV"])
+        runs = [tag for tag, res in serve.items()
+                if res["engine"]["preset"] == r["model"]
+                and res["engine"]["kv_layout"] == r["layout"]
+                and res["engine"]["kv_quant"] == ("int8" if r["kv"] == "int8"
+                                                   else "")
+                and res["geometry"]["kv_ppb"] == r["pages_per_block"]]
+        check(bool(runs), f"{r['name']}: no serve run of {r['model']} "
+                          f"{r['layout']} {r['kv']} ppb "
+                          f"{r['pages_per_block']}")
+        run = runs[0]
+        launches = serve[run]["body_launches"][r["fn"]].get(body, 0)
+        check(launches > 0, f"{r['name']}: its body {body} never ran on the "
+                            f"main path of serve run {run}")
         rows[r["name"]] = {
             "name": r["name"], "route": "cuda",
             "source": f"llmapigateway_tpu_torch/csrc/{SOURCES[r['layout']]}",
             "replaces": REPLACES[(r["kind"], r["layout"])],
-            "launches": launches, "serve": run, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": launches, "serve": run, "body": body,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    ins = insert_rows[0]
+    launches = tools["profile_insert"]["kernel_launches"]
+    check(launches > 0, "kv_insert: kernel #5 never ran in the tools phase")
+    rows[ins["name"]] = {
+        "name": ins["name"], "route": "cuda",
+        "source": "llmapigateway_tpu_torch/csrc/kv_insert.cu",
+        "replaces": "tools/profile_insert.py:66", "launches": launches,
+        "serve": "tools: profile_insert",
+        "max_abs_err": max(r["max_abs_err"] for r in insert_rows),
+        "ms": ins["ms"], "plain_ms": ins["plain_ms"],
+        "bound_ms": ins["bound_ms"], "bound_by": ins["bound_by"],
+        "library_ms": ins["library_ms"],
+        "launch_floor_ms": ins["launch_floor_ms"],
+        "single_launch_ms": ins["single_launch_ms"]}
     return {"kernels": list(rows.values())}
 
 
@@ -1152,6 +1441,7 @@ def main() -> int:
             _kernels.library(name)
         seconds["build"] = time.monotonic() - t0
         emit({"phase": "build", "arch": "sm_90a", "wall_s": seconds["build"],
+              "smem_bytes": body_smem_bytes(_kernels.HEAD_DIMS),
               "sources": {name: {
                   "library": os.path.relpath(b.path, HERE),
                   "seconds": b.seconds,
@@ -1162,15 +1452,20 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.monotonic()
         kernel_rows = kernel_phase(torch, ks, gen)
+        insert_rows = [check_insert(torch, gen, shape)
+                       for shape in INSERT_SHAPES]
         seconds["kernel"] = time.monotonic() - t0
         t0 = time.monotonic()
         check_model(torch)
         seconds["model"] = time.monotonic() - t0
         t0 = time.monotonic()
+        tools = tools_phase(torch, ks)
+        seconds["tools"] = time.monotonic() - t0
+        t0 = time.monotonic()
         serve = serve_phase(torch, ks, smi)
         seconds["serve"] = time.monotonic() - t0
 
-        line = kernels_line(kernel_rows, serve)
+        line = kernels_line(kernel_rows, serve, insert_rows, tools)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -35,10 +35,35 @@
 // masked by select. window == 0 is full causal attention.
 //
 // The head width HD is a template parameter of everything below: the
-// kernels are built for the widths of the served presets (HEAD_DIMS: 128 for
-// llama-3 and mistral, 96 for phi-3-mini). Shared-memory rows hold HD bf16
-// values as PAIRS 32-bit words padded to ROW_WORDS words (an odd count), so
-// a warp reading one column across 32 rows hits 32 different banks.
+// kernels are built for the widths of the served presets (HEAD_DIMS: 64 for
+// tinyllama and qwen2, 96 for phi-3-mini, 128 for llama-3 and mistral, 256
+// for gemma). Shared-memory rows hold HD bf16 values as PAIRS 32-bit words
+// padded to ROW_WORDS words (an odd count), so a warp reading one column
+// across 32 rows hits 32 different banks.
+//
+// Width 256 outgrows two fixed budgets of the 64-row prefill tile, and the
+// design answers both per width (Dims<HD>): (1) the accumulator — a thread
+// owns NPAIR = HD / (2 * NTHREADS / TILE_Q) pairs, 64 fp32 registers at
+// (TILE_Q 64, HD 128), 128 at (64, 256), where ptxas would spill — so the
+// query tile is 32 rows at HD 256, which keeps the per-thread accumulator
+// at 64 registers (the HD 128 body's, which compiles without spills) at
+// the cost of twice the key-tile walks per query; (2) shared memory —
+// Smem<32, 256> is 54,400 bytes, past the 48 KiB a static __shared__
+// declaration may take — so a body whose Smem is larger takes it as
+// DYNAMIC shared memory, after the launcher raises the function's limit
+// (cudaFuncAttributeMaxDynamicSharedMemorySize). Every other prefill body
+// keeps a static declaration (body_smem), and the decode kernels declare
+// theirs in the kernel itself (at most 43,840 B, Dh 256 with 16 rows): a
+// decode Smem reached through body_smem's reference cost the bf16 flash
+// decode body 13% of its time on the card.
+//
+// Decode rows are the G query heads of one KV head. The decode bodies are
+// built per row count R (1, 2, 4, 8, 16), and G is a runtime argument: a
+// group runs the body of R = G rounded up to a power of two (decode_rows),
+// so G 3 (llama-3b-class) and G 7 (qwen2-0.5b) run the 4- and 8-row bodies.
+// Rows >= G are zero-filled queries whose state is computed and never
+// written back; q and out are addressed with the true G (KV head kv owns
+// query heads kv*G .. kv*G + G - 1).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,8 +75,8 @@
 namespace pa {
 
 constexpr int TILE_K = 32;                   // keys per shared-memory tile
-constexpr int TILE_Q = 64;                   // query rows per prefill block
 constexpr int NTHREADS = 128;
+constexpr int STATIC_SMEM_MAX = 48 * 1024;   // a launch's default smem limit
 constexpr float NEG_INF = -1e30f;            // finite, as in the Pallas kernels
 
 using bf16 = __nv_bfloat16;
@@ -68,7 +93,18 @@ struct Dims {
     static_assert(HD % 16 == 0, "rows load as 16-byte chunks of int8");
     static constexpr int PAIRS = HD / 2;          // bf16x2 words per row
     static constexpr int ROW_WORDS = PAIRS + 1;   // padded shared-memory row
+    // Query rows per prefill block: 32 at HD 256 keeps the accumulator at
+    // 64 registers a thread (see the header comment).
+    static constexpr int TILE_Q = HD > 128 ? 32 : 64;
 };
+
+// The decode body's row count for a group of G query heads: G rounded up
+// to a power of two, so the rows divide the block (RowAcc).
+__host__ __device__ constexpr int decode_rows(int G) {
+    int r = 1;
+    while (r < G) r *= 2;
+    return r;
+}
 
 // --------------------------------------------------------------------------
 // KV element types
@@ -202,6 +238,15 @@ struct Smem {
     float ks[TILE_K], vs[TILE_K];    // the tile's int8 scales
     float m[R], l[R], alpha[R];
 };
+
+// The shared memory of the decode body of R rows, and of the prefill body,
+// for one KV type.
+template <int R, typename KVT>
+using DecodeSmem = Smem<R, KVT::kHD>;
+static_assert(sizeof(Smem<16, 256>) <= STATIC_SMEM_MAX,
+              "the largest decode body's shared memory must stay static");
+template <typename KVT>
+using PrefillSmem = Smem<Dims<KVT::kHD>::TILE_Q, KVT::kHD>;
 
 // Per-thread slice of the R x HD fp32 accumulator: thread t owns row
 // t / TPR and the bf16 pairs lane, lane + TPR, ... of it.
@@ -404,35 +449,37 @@ __device__ __forceinline__ int window_floor(int q_pos, int window) {
 
 // Decode: the G query heads of one KV head of one slot (rows q[0..G), HD
 // apart) against the stale keys [lo, n) plus the self column; outputs to the
-// G rows at `out`. The tile loop starts at the tile holding `lo` (the
-// window's floor, 0 without a window).
-template <int G, typename KVT, typename Rows>
+// G rows at `out`. The body holds R = decode_rows(G) >= G rows: rows
+// G..R-1 are zero queries, never written. The tile loop starts at the tile
+// holding `lo` (the window's floor, 0 without a window).
+template <int R, typename KVT, typename Rows>
 __device__ __forceinline__ void decode_body(
-        Smem<G, KVT::kHD>& sm, const bf16* q, const bf16* k_new,
+        DecodeSmem<R, KVT>& sm, int G, const bf16* q, const bf16* k_new,
         const bf16* v_new, const typename KVT::elem* k,
         const typename KVT::elem* v, const float* ks, const float* vs,
         const Rows& rows, int lo, int n, float scale, bf16* out) {
     constexpr int HD = KVT::kHD;
-    load_q_rows<HD>(q, HD, G, G, sm.q);
+    load_q_rows<HD>(q, HD, G, R, sm.q);
     __syncthreads();
-    RowAcc<G, HD> acc;
-    self_column_init<G, HD>(sm.q, k_new, v_new, scale, sm.m, sm.l, acc);
+    RowAcc<R, HD> acc;
+    self_column_init<R, HD>(sm.q, k_new, v_new, scale, sm.m, sm.l, acc);
     for (int pos0 = lo - lo % TILE_K; pos0 < n; pos0 += TILE_K) {
         __syncthreads();    // the previous tile's readers are done
         load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, lo, n, sm.k, sm.v, sm.ks,
                           sm.vs);
         __syncthreads();
-        tile_scores<G, HD, KVT::kQuant>(
+        tile_scores<R, HD, KVT::kQuant>(
             sm.q, sm.k, sm.ks, scale, sm.s, [=](int, int j) {
                 const int pos = pos0 + j;
                 return pos >= lo && pos < n;
             });
         __syncthreads();
-        attend_block<G, HD, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
+        attend_block<R, HD, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
                                          sm.alpha, acc);
     }
     __syncthreads();
-    write_row<G, HD>(acc, sm.l, out + acc.row() * HD);
+    if (acc.row() < G)
+        write_row<R, HD>(acc, sm.l, out + acc.row() * HD);
 }
 
 // Prefill: a tile of `rows_in_tile` query positions first_q, first_q + 1, ...
@@ -442,12 +489,12 @@ __device__ __forceinline__ void decode_body(
 // the window floor of its first query, are never walked.
 template <typename KVT, typename Rows>
 __device__ __forceinline__ void prefill_body(
-        Smem<TILE_Q, KVT::kHD>& sm, const bf16* q, long long stride,
+        PrefillSmem<KVT>& sm, const bf16* q, long long stride,
         int rows_in_tile, int first_q, int n_keys, int window,
         const typename KVT::elem* k, const typename KVT::elem* v,
         const float* ks, const float* vs, const Rows& rows, float scale,
         bf16* out) {
-    constexpr int HD = KVT::kHD;
+    constexpr int HD = KVT::kHD, TILE_Q = Dims<HD>::TILE_Q;
     load_q_rows<HD>(q, stride, rows_in_tile, TILE_Q, sm.q);
     for (int r = threadIdx.x; r < TILE_Q; r += NTHREADS) {
         sm.m[r] = NEG_INF;
@@ -483,28 +530,66 @@ __device__ __forceinline__ void prefill_body(
 // Host side
 // --------------------------------------------------------------------------
 
-// Call f(std::integral_constant<int, G>{}) for a group size the decode
-// kernels are built for; false for any other.
+// Call f(std::integral_constant<int, R>{}) with the decode body's row count
+// R = decode_rows(G) for a group size the decode kernels take (GROUP_SIZES
+// in ops/_kernels.py); false for any other.
 template <typename F>
-inline bool with_group(int G, F&& f) {
+inline bool with_rows(int G, F&& f) {
     switch (G) {
+        case 1: case 2: case 3: case 4: case 7: case 8: case 16: break;
+        default: return false;
+    }
+    switch (decode_rows(G)) {
         case 1: f(std::integral_constant<int, 1>{}); return true;
         case 2: f(std::integral_constant<int, 2>{}); return true;
         case 4: f(std::integral_constant<int, 4>{}); return true;
         case 8: f(std::integral_constant<int, 8>{}); return true;
-        case 16: f(std::integral_constant<int, 16>{}); return true;
-        default: return false;
+        default: f(std::integral_constant<int, 16>{}); return true;
     }
 }
 
 // Call f(KVT{}) for the KV type of (quant, head width) the kernels are built
-// for — head widths 128 and 96; false for any other width.
+// for — head widths 64, 96, 128 and 256 (HEAD_DIMS); false for any other.
 template <typename F>
 inline bool with_kv_type(int quant, int head_dim, F&& f) {
     switch (head_dim) {
-        case 128: return quant ? f(Int8KV<128>{}) : f(Bf16KV<128>{});
+        case 64: return quant ? f(Int8KV<64>{}) : f(Bf16KV<64>{});
         case 96: return quant ? f(Int8KV<96>{}) : f(Bf16KV<96>{});
+        case 128: return quant ? f(Int8KV<128>{}) : f(Bf16KV<128>{});
+        case 256: return quant ? f(Int8KV<256>{}) : f(Bf16KV<256>{});
         default: return false;
+    }
+}
+
+// Launch `kernel`, whose body's shared memory is `SM` (body_smem): as
+// dynamic shared memory when it is above the 48 KiB default, after raising
+// the function's limit. Returns the attribute call's error (the launch's
+// own is read by the caller).
+template <typename SM, typename Kernel, typename... Args>
+inline cudaError_t launch_with_smem(Kernel kernel, dim3 grid,
+                                    cudaStream_t stream, Args... args) {
+    constexpr bool dynamic = sizeof(SM) > STATIC_SMEM_MAX;
+    constexpr int bytes = dynamic ? static_cast<int>(sizeof(SM)) : 0;
+    if constexpr (dynamic) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, NTHREADS, bytes, stream>>>(args...);
+    return cudaSuccess;
+}
+
+// A body's Smem: a static __shared__ declaration when it fits the 48 KiB
+// one may take, else the block's dynamic shared memory (launch_with_smem
+// sizes it).
+template <typename SM>
+__device__ __forceinline__ SM& body_smem() {
+    if constexpr (sizeof(SM) <= STATIC_SMEM_MAX) {
+        __shared__ SM sm;
+        return sm;
+    } else {
+        extern __shared__ __align__(16) unsigned char smem_raw[];
+        return *reinterpret_cast<SM*>(smem_raw);
     }
 }
 

@@ -30,7 +30,10 @@
 // row b reads cache row rows[b], so the engine's prefill of K slots works on
 // the [B_slots, ...] cache in place. Both are the shared bodies of
 // attention_common.cuh over DenseRows, in a bf16 and an int8 instantiation
-// for each head width (128, 96).
+// for each head width (64, 96, 128, 256) and, for decode, each row count
+// (1, 2, 4, 8, 16: groups 1, 2, 3, 4, 7, 8, 16 rounded up, the group itself
+// a runtime argument); the Dh 256 prefill body's shared memory is dynamic
+// (past the 48 KiB static limit).
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError().
 #include "attention_common.cuh"
@@ -39,7 +42,7 @@ using namespace pa;
 
 namespace {
 
-template <int G, typename KVT>
+template <int R, typename KVT>
 __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k_new,
         const bf16* __restrict__ v_new,
@@ -47,10 +50,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(
         const typename KVT::elem* __restrict__ v,
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales, const int* __restrict__ row_map,
-        const int* __restrict__ n_stale, bf16* __restrict__ out, int KV,
-        int S, float scale, int window) {
+        const int* __restrict__ n_stale, bf16* __restrict__ out, int G,
+        int KV, int S, float scale, int window) {
     constexpr int HD = KVT::kHD;
-    __shared__ Smem<G, HD> sm;
+    __shared__ DecodeSmem<R, KVT> sm;           // <= 43,840 B: always static
     const int kv = blockIdx.x, b = blockIdx.y;
     const long long head0 = ((long long)b * KV + kv) * G;
     const long long self_off = ((long long)b * KV + kv) * HD;
@@ -58,9 +61,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(
     const DenseRows rows{(row * KV + kv) * S, S};
     const int n = min(n_stale[b], S);
     const int w0 = window_floor(n_stale[b], window);
-    decode_body<G, KVT>(sm, q + head0 * HD, k_new + self_off,
-                        v_new + self_off, k, v, k_scales, v_scales, rows, w0,
-                        n, scale, out + head0 * HD);
+    decode_body<R, KVT>(
+        sm, G, q + head0 * HD, k_new + self_off, v_new + self_off, k, v,
+        k_scales, v_scales, rows, w0, n, scale, out + head0 * HD);
 }
 
 template <typename KVT>
@@ -71,8 +74,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_prefill_kernel(
         const float* __restrict__ v_scales, const int* __restrict__ row_map,
         const int* __restrict__ start, bf16* __restrict__ out, int T, int H,
         int KV, int S, float scale, int window) {
-    constexpr int HD = KVT::kHD;
-    __shared__ Smem<TILE_Q, HD> sm;
+    constexpr int HD = KVT::kHD, TILE_Q = Dims<HD>::TILE_Q;
+    auto& sm = body_smem<PrefillSmem<KVT>>();
     const int t0 = blockIdx.x * TILE_Q, h = blockIdx.y, b = blockIdx.z;
     const int kv = h / (H / KV);
     const int rows_in_tile = min(TILE_Q, T - t0);   // ragged last tile
@@ -95,32 +98,36 @@ bool launch_decode(const void* q, const void* k_new, const void* v_new,
                    void* out, int B, int G, int KV, int S, float scale,
                    int window, cudaStream_t stream) {
     using E = typename KVT::elem;
-    return with_group(G, [&](auto g) {
-        flash_decode_kernel<decltype(g)::value, KVT>
+    return with_rows(G, [&](auto r) {
+        flash_decode_kernel<decltype(r)::value, KVT>
             <<<dim3(KV, B), NTHREADS, 0, stream>>>(
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
                 static_cast<const bf16*>(v_new), static_cast<const E*>(k),
                 static_cast<const E*>(v), static_cast<const float*>(ks),
                 static_cast<const float*>(vs),
                 static_cast<const int*>(row_map),
-                static_cast<const int*>(n_stale), static_cast<bf16*>(out), KV,
-                S, scale, window);
+                static_cast<const int*>(n_stale), static_cast<bf16*>(out), G,
+                KV, S, scale, window);
     });
 }
 
+// Returns the error of a refused attribute call for a body above 48 KiB of
+// shared memory (the launch's own error is read by the C entry).
 template <typename KVT>
-void launch_prefill(const void* q, const void* k, const void* v,
-                    const void* ks, const void* vs, const void* row_map,
-                    const void* start, void* out, int B, int T, int H, int KV,
-                    int S, float scale, int window, cudaStream_t stream) {
+cudaError_t launch_prefill(const void* q, const void* k, const void* v,
+                           const void* ks, const void* vs,
+                           const void* row_map, const void* start, void* out,
+                           int B, int T, int H, int KV, int S, float scale,
+                           int window, cudaStream_t stream) {
     using E = typename KVT::elem;
+    constexpr int TILE_Q = Dims<KVT::kHD>::TILE_Q;
     const dim3 grid((T + TILE_Q - 1) / TILE_Q, H, B);
-    flash_prefill_kernel<KVT><<<grid, NTHREADS, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const E*>(k),
-        static_cast<const E*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(row_map),
-        static_cast<const int*>(start), static_cast<bf16*>(out), T, H, KV, S,
-        scale, window);
+    return launch_with_smem<PrefillSmem<KVT>>(
+        flash_prefill_kernel<KVT>, grid, stream, static_cast<const bf16*>(q),
+        static_cast<const E*>(k), static_cast<const E*>(v),
+        static_cast<const float*>(ks), static_cast<const float*>(vs),
+        static_cast<const int*>(row_map), static_cast<const int*>(start),
+        static_cast<bf16*>(out), T, H, KV, S, scale, window);
 }
 
 }  // namespace
@@ -155,12 +162,15 @@ extern "C" int flash_prefill_attention(
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0 || T == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
     const bool ok = with_kv_type(quant, head_dim, [&](auto kvt) {
-        launch_prefill<decltype(kvt)>(q, k, v, ks, vs, row_map, start, out, B,
-                                      T, H, KV, S, scale, window, s);
+        err = launch_prefill<decltype(kvt)>(q, k, v, ks, vs, row_map, start,
+                                            out, B, T, H, KV, S, scale,
+                                            window, s);
         return true;
     });
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 

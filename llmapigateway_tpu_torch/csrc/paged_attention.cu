@@ -36,15 +36,19 @@
 //
 // Both are the shared bodies of attention_common.cuh over PagedRows (ppb 1)
 // or PagedRunRows (ppb > 1), in a bf16 and an int8 instantiation for each
-// head width (128, 96); the window is a runtime argument. Each C entry launches on the caller's stream and
-// returns cudaGetLastError().
+// head width (64, 96, 128, 256) and, for decode, each row count (1, 2, 4,
+// 8, 16: groups 1, 2, 3, 4, 7, 8, 16 rounded up, the group itself a runtime
+// argument); the window is a runtime argument. The Dh 256 prefill
+// body's shared memory is dynamic (past the 48 KiB static limit).
+// Each C entry launches on the caller's stream and returns
+// cudaGetLastError().
 #include "attention_common.cuh"
 
 using namespace pa;
 
 namespace {
 
-template <int G, typename KVT, typename Rows>
+template <int R, typename KVT, typename Rows>
 __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k_new,
         const bf16* __restrict__ v_new,
@@ -53,10 +57,10 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales,
         const int* __restrict__ page_table, const int* __restrict__ n_stale,
-        bf16* __restrict__ out, int KV, int page, int NP, float scale,
-        int window, int ppb) {
+        bf16* __restrict__ out, int G, int KV, int page, int NP,
+        float scale, int window, int ppb) {
     constexpr int HD = KVT::kHD;
-    __shared__ Smem<G, HD> sm;
+    __shared__ DecodeSmem<R, KVT> sm;           // <= 43,840 B: always static
     const int kv = blockIdx.x, b = blockIdx.y;
     // Query heads kv*G .. kv*G+G-1 of slot b are contiguous rows of q
     // [B, H, Dh] and of out [B, H*Dh] (the JAX kernel's qg reshape).
@@ -68,9 +72,9 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(
     // query sits at position n_stale[b].
     const int n = min(n_stale[b], NP * page);
     const int w0 = window_floor(n_stale[b], window);
-    decode_body<G, KVT>(sm, q + head0 * HD, k_new + self_off,
-                        v_new + self_off, k_pages, v_pages, k_scales,
-                        v_scales, rows, w0, n, scale, out + head0 * HD);
+    decode_body<R, KVT>(
+        sm, G, q + head0 * HD, k_new + self_off, v_new + self_off, k_pages,
+        v_pages, k_scales, v_scales, rows, w0, n, scale, out + head0 * HD);
 }
 
 template <typename KVT, typename Rows>
@@ -83,8 +87,8 @@ __global__ void __launch_bounds__(NTHREADS) paged_prefill_kernel(
         const int* __restrict__ page_table, const int* __restrict__ start,
         bf16* __restrict__ out, int T, int H, int KV, int page, int NP,
         float scale, int window, int ppb) {
-    constexpr int HD = KVT::kHD;
-    __shared__ Smem<TILE_Q, HD> sm;
+    constexpr int HD = KVT::kHD, TILE_Q = Dims<HD>::TILE_Q;
+    auto& sm = body_smem<PrefillSmem<KVT>>();
     const int t0 = blockIdx.x * TILE_Q, h = blockIdx.y, b = blockIdx.z;
     const int kv = h / (H / KV);
     const int rows_in_tile = min(TILE_Q, T - t0);   // ragged last tile
@@ -109,8 +113,8 @@ bool launch_decode(const void* q, const void* k_new, const void* v_new,
                    int page, int NP, float scale, int window, int ppb,
                    cudaStream_t stream) {
     using E = typename KVT::elem;
-    return with_group(G, [&](auto g) {
-        paged_decode_kernel<decltype(g)::value, KVT, Rows>
+    return with_rows(G, [&](auto r) {
+        paged_decode_kernel<decltype(r)::value, KVT, Rows>
             <<<dim3(KV, B), NTHREADS, 0, stream>>>(
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
                 static_cast<const bf16*>(v_new), static_cast<const E*>(k),
@@ -118,19 +122,24 @@ bool launch_decode(const void* q, const void* k_new, const void* v_new,
                 static_cast<const float*>(vs),
                 static_cast<const int*>(page_table),
                 static_cast<const int*>(n_stale), static_cast<bf16*>(out),
-                KV, page, NP, scale, window, ppb);
+                G, KV, page, NP, scale, window, ppb);
     });
 }
 
+// Returns the error of a refused attribute call for a body above 48 KiB of
+// shared memory (the launch's own error is read by the C entry).
 template <typename KVT, typename Rows>
-void launch_prefill(const void* q, const void* k, const void* v,
-                    const void* ks, const void* vs, const void* page_table,
-                    const void* start, void* out, int B, int T, int H, int KV,
-                    int page, int NP, float scale, int window, int ppb,
-                    cudaStream_t stream) {
+cudaError_t launch_prefill(const void* q, const void* k, const void* v,
+                           const void* ks, const void* vs,
+                           const void* page_table, const void* start,
+                           void* out, int B, int T, int H, int KV, int page,
+                           int NP, float scale, int window, int ppb,
+                           cudaStream_t stream) {
     using E = typename KVT::elem;
+    constexpr int TILE_Q = Dims<KVT::kHD>::TILE_Q;
     const dim3 grid((T + TILE_Q - 1) / TILE_Q, H, B);
-    paged_prefill_kernel<KVT, Rows><<<grid, NTHREADS, 0, stream>>>(
+    return launch_with_smem<PrefillSmem<KVT>>(
+        paged_prefill_kernel<KVT, Rows>, grid, stream,
         static_cast<const bf16*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(page_table),
@@ -189,13 +198,15 @@ extern "C" int paged_prefill_attention(
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0 || T == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
     const bool ok = with_body(quant, head_dim, ppb, [&](auto kvt, auto rows) {
-        launch_prefill<decltype(kvt), decltype(rows)>(
+        err = launch_prefill<decltype(kvt), decltype(rows)>(
             q, k, v, ks, vs, page_table, start, out, B, T, H, KV, page, NP,
             scale, window, ppb, s);
         return true;
     });
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -67,6 +67,7 @@ from ..config.schemas import LocalEngineConfig
 from ..models import forward_fn, init_fn
 from ..models.config import ModelConfig, get_preset
 from ..models.llama import KVCache, forward_hidden, head_logits
+from ..ops import _kernels
 from ..ops.flash_attention import make_cache_attention_fn
 from ..ops.paged_attention import PagedKVCache, make_paged_attention_fn
 from .paged import PageAllocator
@@ -186,6 +187,21 @@ def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
                          f"{sorted(_DTYPES)}")
 
 
+def _refuse_unbuilt_geometry(cfg: LocalEngineConfig, model_cfg: ModelConfig,
+                             device: str | torch.device) -> None:
+    """On the card every attention call is a kernel, and the kernels are
+    compiled for some head widths and group sizes only: refuse any other at
+    build, before anything touches the device, rather than at the first
+    request. The CPU runs the plain versions, which take any geometry."""
+    if torch.device(device).type != "cuda":
+        return
+    why = _kernels.unsupported_geometry(model_cfg.head_dim, model_cfg.n_heads,
+                                        model_cfg.n_kv_heads)
+    if why is not None:
+        raise ValueError(f"preset {cfg.preset!r} cannot run on the card: "
+                         f"{why}")
+
+
 class InferenceEngine:
     """Owns params, the KV cache, and the batching loop."""
 
@@ -198,6 +214,7 @@ class InferenceEngine:
             raise ValueError("local engine needs 'preset'")
         model_cfg = get_preset(engine_cfg.preset)
         _refuse_unported(engine_cfg, model_cfg)
+        _refuse_unbuilt_geometry(engine_cfg, model_cfg, device)
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[engine_cfg.dtype]

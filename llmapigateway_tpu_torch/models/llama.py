@@ -401,13 +401,16 @@ def qkv_proj(h: torch.Tensor, lp: dict, config: ModelConfig):
 def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
                    lengths: torch.Tensor, cache, *,
                    attention_fn: Callable,
-                   active: torch.Tensor | None = None):
+                   active: torch.Tensor | None = None,
+                   mlp_fn: Callable | None = None):
     """The decoder stack over new tokens, up to and including the final
     norm: (hidden [B, T, D], cache). The pool in ``cache`` is updated in
     place. tokens [B, T] int; lengths [B] int32 (tokens already cached per
     slot); active [B] bool (inactive slots compute but write to the trash
     page). A sliding-window model's window is threaded through the plain
-    dense provider here; the kernels' providers carry it themselves."""
+    dense provider here; the kernels' providers carry it themselves.
+    ``mlp_fn(h, layer_params)`` replaces the gated MLP (the JAX forward's
+    hook, used by the decode profiler's ablations)."""
     c = config
     B, T = tokens.shape
     dh = c.head_dim
@@ -444,7 +447,10 @@ def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
                                       layer_of(cache.v, i), lengths, active)
         x = x + attn @ lp["wo"]
         h = rms_norm(x, lp["mlp_norm"], c.rms_eps, c.rms_offset)
-        x = x + swiglu_mlp(h, lp["wg"], lp["wu"], lp["wd"], c.act)
+        if mlp_fn is not None:
+            x = x + mlp_fn(h, lp)
+        else:
+            x = x + swiglu_mlp(h, lp["wg"], lp["wu"], lp["wd"], c.act)
     if decode_attend is not None:
         attention_fn.insert_all(cache.k, cache.v, torch.stack(ys_k),
                                 torch.stack(ys_v), lengths, active)
@@ -467,11 +473,13 @@ def head_logits(params: Params, config: ModelConfig,
 
 def forward(params: Params, config: ModelConfig, tokens: torch.Tensor,
             lengths: torch.Tensor, cache, *, attention_fn: Callable,
-            active: torch.Tensor | None = None):
+            active: torch.Tensor | None = None,
+            mlp_fn: Callable | None = None):
     """One forward pass over new tokens (prefill chunk or single decode
     step). Returns (logits [B, T, V] fp32, cache)."""
     x, cache = forward_hidden(params, config, tokens, lengths, cache,
-                              attention_fn=attention_fn, active=active)
+                              attention_fn=attention_fn, active=active,
+                              mlp_fn=mlp_fn)
     return head_logits(params, config, x), cache
 
 

@@ -30,13 +30,13 @@ from pathlib import Path
 
 import torch
 
-HEAD_DIMS = (96, 128)               # head widths the kernels are compiled for
-GROUP_SIZES = (1, 2, 4, 8, 16)      # query heads per KV head the decode kernels take
+HEAD_DIMS = (64, 96, 128, 256)      # head widths the attention kernels are compiled for
+GROUP_SIZES = (1, 2, 3, 4, 7, 8, 16)    # query heads per KV head the decode kernels take
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("paged_attention", "flash_attention")     # csrc/<name>.cu
+SOURCES = ("paged_attention", "flash_attention", "kv_insert")  # csrc/<name>.cu
 HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -108,6 +108,24 @@ def build() -> dict[str, Build]:
         return builds
 
 
+def unsupported_geometry(head_dim: int, n_heads: int, n_kv_heads: int,
+                         decode: bool = True) -> str | None:
+    """Why the attention kernels cannot take this head geometry, or None:
+    a head width outside ``HEAD_DIMS``, query heads that do not split over
+    the KV heads, or (decode only) a group size outside ``GROUP_SIZES``."""
+    if head_dim not in HEAD_DIMS:
+        return (f"head_dim {head_dim} unsupported; the kernels are built "
+                f"for {HEAD_DIMS}")
+    if n_kv_heads <= 0 or n_heads % n_kv_heads:
+        return (f"{n_heads} query heads do not split over {n_kv_heads} KV "
+                f"heads")
+    if decode and n_heads // n_kv_heads not in GROUP_SIZES:
+        return (f"group of {n_heads // n_kv_heads} query heads per KV head "
+                f"unsupported; the decode kernels take groups of "
+                f"{GROUP_SIZES}")
+    return None
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[name].path))
@@ -118,6 +136,10 @@ def library(name: str) -> ctypes.CDLL:
         lib.paged_prefill_attention.argtypes = (
             [ptr] * 8 + [i32] * 7 + [f32] + [i32] * 3 + [ptr])
         entries = ("paged_decode_attention", "paged_prefill_attention")
+    elif name == "kv_insert":
+        lib.kv_insert.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.empty_launch.argtypes = [ptr]
+        entries = ("kv_insert", "empty_launch")
     else:
         lib.flash_decode_attention.argtypes = (
             [ptr] * 10 + [i32] * 5 + [f32] + [i32] * 2 + [ptr])
@@ -196,3 +218,18 @@ def launch_flash_prefill(q, k, v, quant, rows, start, out,
           q.data_ptr(), k[0].data_ptr(), v[0].data_ptr(), _ptr(k[1]),
           _ptr(v[1]), _ptr(rows), start.data_ptr(), out.data_ptr(),
           B, T, H, KV, Dh, S, Dh ** -0.5, int(quant), window)
+
+
+def launch_kv_insert(cache, new, lengths) -> None:
+    """Kernel #5: row ``new[b, 0, kv]`` into ``cache[b, kv, lengths[b]]``,
+    in place (the wrapper, tools/profile_insert.py, checked the operands)."""
+    B, KV, S, Dh = cache.shape
+    _call("kv_insert", "kv_insert", cache.device, new.data_ptr(),
+          cache.data_ptr(), lengths.data_ptr(), B, KV, S,
+          Dh * cache.element_size())
+
+
+def launch_empty(device) -> None:
+    """An empty kernel on ``device``'s current stream: the launch-latency
+    floor the smoke times beside kernel #5."""
+    _call("kv_insert", "empty_launch", device)

@@ -34,8 +34,8 @@ iff ``i - j < window``, the query itself included), 0 for full causal
 attention. The kernels then walk only the keys inside the window.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``flash_decode_attention.launches``), and per kernel variant in the dict
-``.variant_launches`` (``"full"``, ``"window"``; see :func:`variant_name`),
+(``flash_decode_attention.launches``), and per body and head geometry in the
+dict ``.body_launches`` (``"full/bf16/Dh128/G4"``; see :func:`body_name`),
 both incremented only where the kernel is launched; it launches the kernel
 for a CUDA tensor, takes the plain version for a CPU tensor, and raises for
 anything else — it never falls back.
@@ -249,13 +249,13 @@ def check_kernel_args(name: str, acts: dict, kv: dict, ints: dict) -> bool:
 
 
 def check_geometry(name: str, H: int, KV: int, Dh: int, values_shape,
-                   ) -> None:
-    if Dh not in _kernels.HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {Dh} unsupported; the kernels "
-                         f"are built for {_kernels.HEAD_DIMS}")
-    if KV <= 0 or H % KV or (H // KV) not in _kernels.GROUP_SIZES:
-        raise ValueError(f"{name}: {H} query heads over {KV} KV heads; the "
-                         f"kernel takes groups of {_kernels.GROUP_SIZES}")
+                   decode: bool) -> None:
+    """The head geometry the kernels are built for (``_kernels.HEAD_DIMS``;
+    decode also ``GROUP_SIZES``; prefill takes any H over KV), and a cache
+    of that geometry."""
+    why = _kernels.unsupported_geometry(Dh, H, KV, decode)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     if len(values_shape) != 4 or values_shape[1] != KV \
             or values_shape[3] != Dh:
         raise ValueError(f"{name}: cache shape {tuple(values_shape)} does "
@@ -281,16 +281,25 @@ def variant_name(window: int, pages_per_block: int = 1) -> str:
     return name if pages_per_block == 1 else f"{name}_ppb{pages_per_block}"
 
 
-def count_launch(fn, variant: str) -> None:
-    """One kernel launch of wrapper ``fn``'s body ``variant``: the total
-    ``fn.launches`` and ``fn.variant_launches[variant]``."""
+def body_name(window: int, pages_per_block: int, quant: bool,
+              head_dim: int, group: int) -> str:
+    """The body a launch ran and the head geometry it ran at: its variant
+    (:func:`variant_name`), KV type, head width and group of query heads per
+    KV head, e.g. ``"full_ppb2/int8/Dh128/G4"``."""
+    return (f"{variant_name(window, pages_per_block)}/"
+            f"{'int8' if quant else 'bf16'}/Dh{head_dim}/G{group}")
+
+
+def count_launch(fn, body: str) -> None:
+    """One kernel launch of wrapper ``fn``'s ``body``: the total
+    ``fn.launches`` and ``fn.body_launches[body]``."""
     fn.launches += 1
-    fn.variant_launches[variant] = fn.variant_launches.get(variant, 0) + 1
+    fn.body_launches[body] = fn.body_launches.get(body, 0) + 1
 
 
 def reset_launches(fn) -> None:
     fn.launches = 0
-    fn.variant_launches = {}
+    fn.body_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +332,7 @@ def flash_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     B, H, Dh = q.shape
     KV = k_new.shape[1]
     kq = split_kv(layer_k)[0]
-    check_geometry(name, H, KV, Dh, kq.shape)
+    check_geometry(name, H, KV, Dh, kq.shape, decode=True)
     if k_new.shape != (B, KV, Dh) or v_new.shape != (B, KV, Dh) \
             or split_kv(layer_v)[0].shape != kq.shape \
             or n_stale.shape != (B,) or (rows is None and kq.shape[0] != B):
@@ -336,7 +345,8 @@ def flash_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     _kernels.launch_flash_decode(q, k_new, v_new, split_kv(layer_k),
                                  split_kv(layer_v), quant, rows, n_stale,
                                  out, window)
-    count_launch(flash_decode_attention, variant_name(window))
+    count_launch(flash_decode_attention,
+                 body_name(window, 1, quant, Dh, H // KV))
     return out
 
 
@@ -366,7 +376,7 @@ def flash_prefill_attention(q: torch.Tensor, layer_k, layer_v,
     B, T, H, Dh = q.shape
     kq = split_kv(layer_k)[0]
     KV = kq.shape[1]
-    check_geometry(name, H, KV, Dh, kq.shape)
+    check_geometry(name, H, KV, Dh, kq.shape, decode=False)
     if split_kv(layer_v)[0].shape != kq.shape or start.shape != (B,) \
             or (rows is None and kq.shape[0] != B):
         raise ValueError(f"{name}: operand shapes disagree")
@@ -377,7 +387,8 @@ def flash_prefill_attention(q: torch.Tensor, layer_k, layer_v,
     out = torch.empty((B, T, H * Dh), dtype=q.dtype, device=q.device)
     _kernels.launch_flash_prefill(q, split_kv(layer_k), split_kv(layer_v),
                                   quant, rows, start, out, window)
-    count_launch(flash_prefill_attention, variant_name(window))
+    count_launch(flash_prefill_attention,
+                 body_name(window, 1, quant, Dh, H // KV))
     return out
 
 

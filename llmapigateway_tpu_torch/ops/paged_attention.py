@@ -34,10 +34,11 @@ the kernel reads one table entry per run; the output is bit-for-bit that of
 ``pages_per_block=1``).
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``paged_decode_attention.launches``) and per variant in
-``.variant_launches`` (``"full"``, ``"window"``, ``"full_ppb2"``, ...),
-incremented only where the kernel is launched, so a run can show that its
-main path went through the kernel body it meant to.
+(``paged_decode_attention.launches``) and per body and head geometry in
+``.body_launches`` (``"full/bf16/Dh128/G4"``, ``"window_ppb2/int8/Dh96/G1"``,
+...; ``flash_attention.body_name``), incremented only where the kernel is
+launched, so a run can show that its main path went through the kernel body
+it meant to, at the head geometry it meant to.
 """
 from __future__ import annotations
 
@@ -48,9 +49,9 @@ import torch
 from ..models.config import ModelConfig
 from ..models.llama import quantize_kv, zeros_kv
 from . import _kernels
-from .flash_attention import (causal_core, check_geometry, check_kernel_args,
-                              check_window, count_launch, decode_core,
-                              reset_launches, split_kv, variant_name)
+from .flash_attention import (body_name, causal_core, check_geometry,
+                              check_kernel_args, check_window, count_launch,
+                              decode_core, reset_launches, split_kv)
 
 
 class PagedKVCache(NamedTuple):
@@ -267,7 +268,7 @@ def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     B, H, Dh = q.shape
     KV = k_new.shape[1]
     kq = split_kv(k_pages)[0]
-    check_geometry(name, H, KV, Dh, kq.shape)
+    check_geometry(name, H, KV, Dh, kq.shape, decode=True)
     _check_table(name, page_table, B)
     if k_new.shape != (B, KV, Dh) or v_new.shape != (B, KV, Dh) \
             or split_kv(v_pages)[0].shape != kq.shape \
@@ -281,7 +282,7 @@ def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                                  split_kv(v_pages), quant, page_table,
                                  n_stale, out, window, pages_per_block)
     count_launch(paged_decode_attention,
-                 variant_name(window, pages_per_block))
+                 body_name(window, pages_per_block, quant, Dh, H // KV))
     return out
 
 
@@ -312,7 +313,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
     B, T, H, Dh = q.shape
     kq = split_kv(k_pages)[0]
     KV = kq.shape[1]
-    check_geometry(name, H, KV, Dh, kq.shape)
+    check_geometry(name, H, KV, Dh, kq.shape, decode=False)
     _check_table(name, page_table, B)
     if split_kv(v_pages)[0].shape != kq.shape or start.shape != (B,):
         raise ValueError(f"{name}: operand shapes disagree")
@@ -324,7 +325,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages, v_pages,
                                   quant, page_table, start, out, window,
                                   pages_per_block)
     count_launch(paged_prefill_attention,
-                 variant_name(window, pages_per_block))
+                 body_name(window, pages_per_block, quant, Dh, H // KV))
     return out
 
 

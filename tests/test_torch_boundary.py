@@ -22,8 +22,10 @@ from llmapigateway_tpu_torch.utils import json5lite
 REPO = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(llmapigateway_tpu_torch.__file__).parent
 SMOKE = REPO / "chip_smoke.py"
-ENGINE = {"preset": "tiny-test", "kv_page_size": 16, "prefix_cache": False,
-          "max_seq_len": 256}
+# A preset whose head geometry the kernels are built for: on the card an
+# engine of any other (tiny-test's heads are 16 wide) is refused at build.
+ENGINE = {"preset": "tinyllama-1.1b", "kv_page_size": 16,
+          "prefix_cache": False, "max_seq_len": 256}
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -38,12 +40,22 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "llmapigateway_tpu")
+    return root in ("jax", "jaxlib", "llmapigateway_tpu", "tools")
+
+
+def test_the_scan_covers_the_ported_tools():
+    names = {p.relative_to(PORT_DIR).as_posix()
+             for p in PORT_DIR.rglob("*.py")}
+    assert {"tools/__init__.py", "tools/profile_insert.py",
+            "tools/profile_decode.py",
+            "tools/profile_engine_burst.py"} <= names
 
 
 @pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")) + [SMOKE],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_imports(path):
+    """Every module of the port (its ``tools/`` included) and the smoke:
+    no JAX, no JAX package, and not the JAX package's ``tools/``."""
     bad = [n for n in _imported_modules(path) if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
 
