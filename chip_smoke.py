@@ -5,6 +5,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+or, to time the decode rows of several checkouts in turn with one timer
+(say a ``git archive`` of the parent, this one, this one, the parent)::
+
+    python3 chip_smoke.py --decode-ab TREE [TREE ...] [--out FILE]
+
 Phases, each printed as JSON lines:
 
 1. device  — ``nvidia-smi`` name and power limit, ``torch.cuda`` name.
@@ -25,8 +30,10 @@ Phases, each printed as JSON lines:
              and 4) on a packed, shuffled table, each bit-for-bit the
              per-page kernel's output.
              Per-element error against the fp32 plain output under the
-             stated relative + absolute tolerance, and times (CUDA events,
-             median of 25 runs with L2 flushed before each) beside the plain
+             stated relative + absolute tolerance, and device times (CUDA
+             events, median of 25 runs with L2 flushed before each and a
+             device-side spin hiding the host's enqueue; the wrapper's host
+             time per call beside them) beside the plain
              version, one library call on the dense view
              (``scaled_dot_product_attention`` on bf16 K/V with a causal or
              banded mask; timed only — the port never calls it; no library
@@ -34,7 +41,12 @@ Phases, each printed as JSON lines:
              card could take for the keys the kernel must read. Then every
              group size (1, 2, 3, 4, 7, 8, 16) and head width (64, 96, 128,
              256) the kernels are built for, with and without a window, held
-             the same way, for every kernel body. Then kernel #5, the
+             the same way, for every kernel body. Then every decode body
+             (both layouts and KV types, window 0 and 700, pages_per_block
+             1/2/4) with slots at 0, the cache's end and each boundary ±1
+             of the key split its wrapper launched with. Decode rows carry
+             that split (``n_split``, ``split_keys``) and workspace bytes as
+             the wrapper recorded them. Then kernel #5, the
              decode step's one-row KV insert, ``torch.equal`` to its plain
              version and to ``index_put_`` at the insert tool's shape and at
              llama-3-8b's, timed beside both, its bound and an empty
@@ -75,7 +87,8 @@ Phases, each printed as JSON lines:
              rotates in prefill and in decode, no slot ever holds more than
              the ring, and every page comes back. Pairs of runs that read
              the same values in the same order must stream the same text.
-7. the ``kernels`` line, the nvidia-smi line, and last the contract line
+7. the ``kernels`` line (decode rows with the key split ``n_split`` and
+   workspace bytes of their timed launch), the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA card,
@@ -120,6 +133,10 @@ KERNEL_ATOL = 2.0 ** -14
 # head count given here (llama-3b-class's 24 over 8, qwen2-0.5b's 14 over 2).
 GROUP_CASES = dict(B=4, H=32, n_stale=[0, 257, 1000, 4095], T=100,
                    starts=[0, 1000], windows=[0, 700], kv_for_group={3: 8, 7: 2})
+# Decode split edges: every decode body at these heads (SHAPES' decode
+# cases' geometry), B slots a launch, window 0 and 700, the slots' n_stale
+# at 0, the cache's end and each boundary ±1 of the launch's key split.
+SPLIT_EDGES = dict(shapes=("llama-3-8b", "gemma-2b"), B=8, windows=(0, 700))
 # LM head: fp32 logits from bf16 operands, against the fp32 product of the
 # same values; a bf16 rounding of the logits (2^-9 of the largest) fails.
 HEAD_REL_TOL = 2.0 ** -12
@@ -353,41 +370,43 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 def body_smem_bytes(head_dims) -> dict:
-    """Each attention body's shared memory, ``sizeof(Smem<R, HD>)`` by its
-    layout (csrc/attention_common.cuh; ptxas does not report the dynamic
-    shared memory of the bodies above 48 KiB): R rows of HD/2 + 1 words of
-    queries and scores, a
-    32-key tile of K and V, the tile's int8 scales and m/l/alpha per row —
-    decode R = 1 .. 16 (groups rounded up to a power of two), prefill R =
-    the query tile (32 at HD 256, else 64)."""
-    def size(R, HD):
+    """Each attention body's shared memory by its layout (ptxas does not
+    report the dynamic shared memory of the bodies above 48 KiB). Prefill
+    (``Smem<R, HD>``, csrc/attention_common.cuh): R rows of HD/2 + 1 words
+    of queries and scores, a 32-key tile of K and V, the tile's int8 scales
+    and m/l/alpha per row, R = the query tile (32 at HD 256, else 64).
+    Decode (``SplitSmem<R, KVT>``, csrc/decode_split.cuh) at G 16: a ring of
+    2-4 stages of a raw K and V tile and its scales (aiming at 40 KiB), the
+    warps' merge area over it, and per warp 8 probabilities and a rescale
+    factor per row."""
+    def prefill(R, HD):
         words = HD // 2 + 1
         return 4 * (R * words + 2 * 32 * words + R * 33 + 2 * 32 + 3 * R)
+
+    def decode(HD, elem):
+        stage = 2 * 32 * HD * elem + 2 * 32 * 4
+        stages = 4 if 4 * stage <= 40960 else 3 if 3 * stage <= 40960 else 2
+        return stages * stage + 4 * 4 * (8 + 1) * 4   # 4 warps x 4 rows
     out = {}
     for HD in head_dims:
-        out[f"prefill Dh{HD}"] = size(32 if HD > 128 else 64, HD)
-        out[f"decode Dh{HD} G16"] = size(16, HD)
+        out[f"prefill Dh{HD}"] = prefill(32 if HD > 128 else 64, HD)
+        out[f"decode Dh{HD} G16 bf16"] = decode(HD, 2)
+        out[f"decode Dh{HD} G16 int8"] = decode(HD, 1)
     return out
 
 
+def cuda_times(torch, fn, iters: int = 25, warmup: int = 3):
+    """(median device ms, least host ms of one call) of ``fn`` on the
+    card, L2 flushed before each run (``tools/_timing.py``: the pair of
+    events brackets the device work, a device-side spin covering the host's
+    enqueue; the host's time is the call's Python and enqueue)."""
+    from llmapigateway_tpu_torch.tools._timing import device_times
+    return device_times(fn, iters, warmup)
+
+
 def cuda_ms(torch, fn, iters: int = 25, warmup: int = 3) -> float:
-    """Median ms of ``fn`` on the card: a CUDA event pair per run, L2
-    flushed (a 128 MB write) before each, as the main path finds each
-    layer's cache cold."""
-    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device ms of ``fn`` (:func:`cuda_times`)."""
+    return cuda_times(torch, fn, iters, warmup)[0]
 
 
 def graph_ms(torch, fn, n: int = 100, reps: int = 5) -> float:
@@ -586,6 +605,13 @@ class Kernels:
         return self.fn[(kind, layout)](*args, **variant_kw(layout, window,
                                                            ppb))
 
+    def launched_split(self, layout, window, ppb, quant, Dh, G) -> dict:
+        """The key split and workspace bytes the decode wrapper recorded
+        for its latest launch of this body at this head geometry."""
+        from llmapigateway_tpu_torch.ops.flash_attention import body_name
+        return self.fn[("decode", layout)].body_splits[
+            body_name(window, ppb, quant, Dh, G)]
+
     def call_plain(self, kind, layout, args, window=0):
         """The plain version on the same args (fp32 floats); the contiguous
         ones take ``rows`` before the window."""
@@ -611,8 +637,9 @@ def row_name(ks, kind, layout, quant, shape, window, ppb) -> str:
 def _timed_rows(torch, ks, kind, layout, quant, shape, args, window, ppbs,
                 library_fn, n_bytes, n_flops, shape_info, tag=""):
     """Run, hold and time the body of every ``ppb`` in ``ppbs`` on the same
-    inputs; a ppb > 1 body must also equal the ppb 1 body bit for bit.
-    Returns one result per ppb."""
+    inputs; a ppb > 1 body must also equal the ppb 1 body bit for bit. A
+    decode row carries the key split its timed launches ran with, as the
+    wrapper recorded it. Returns one result per ppb."""
     ref = ks.call_plain(kind, layout, _fp32(args), window)
     base = ks.call(kind, layout, args, window)
     torch.cuda.synchronize()
@@ -632,9 +659,14 @@ def _timed_rows(torch, ks, kind, layout, quant, shape, args, window, ppbs,
                "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}
         if ppb > 1:
             res["equal_to_ppb1"] = bool(torch.equal(got, base))
+        ms, host_ms = cuda_times(torch, lambda: ks.call(kind, layout, args,
+                                                        window, ppb))
+        if kind == "decode":
+            res.update(ks.launched_split(
+                layout, window, ppb, quant, shape_info["Dh"],
+                shape_info["H"] // shape_info["KV"]))
         res.update({
-            "ms": cuda_ms(torch, lambda: ks.call(kind, layout, args, window,
-                                                 ppb)),
+            "ms": ms, "host_ms": host_ms,
             "plain_ms": cuda_ms(torch, lambda: ks.call_plain(
                 kind, layout, args, window), iters=5),
             "library_ms": library_ms,
@@ -693,6 +725,98 @@ def check_decode(torch, ks, gen, layout, quant, shape, ppbs=(1,)) -> list:
                else {"S": d["S"]}), "n_stale": n_list}
     return _timed_rows(torch, ks, "decode", layout, quant, shape, args,
                        window, ppbs, library_fn, n_bytes, n_flops, info)
+
+
+def decode_rows(torch, ks, gen, smoke=None) -> list[dict]:
+    """The kernel phase's timed decode rows: each shape's decode case on
+    both layouts and KV types, then the multi-page bodies. ``smoke``: the
+    chip_smoke module whose cases and checks run (this one; the A/B passes
+    each tree's own)."""
+    cs = smoke or sys.modules[__name__]
+    rows = []
+    for shape in cs.SHAPES:
+        for layout in ("paged", "contiguous"):
+            for quant in (False, True):
+                rows += cs.check_decode(torch, ks, gen, layout, quant, shape)
+    for shape in cs.PPB_SHAPES:
+        for quant in (False, True):
+            rows += cs.check_decode(torch, ks, gen, "paged", quant, shape,
+                                    cs.PPBS)
+    return rows
+
+
+def split_edge_n_stale(split: dict, limit: int, window: int) -> list[int]:
+    """0, the cache's end and each split boundary ±1 of a launch's key
+    ``split``: the slot's n - base (base: its window floor's tile) at
+    s·split_keys + d, d in -1, 0, 1 — below the window directly, past it
+    where some floor reaches it."""
+    sk, tile = split["split_keys"], 32
+    ns = {0, 1, limit - 1, limit}
+    for s in range(1, split["n_split"] + 1):
+        for d in (-1, 0, 1):
+            t = s * sk + d
+            if not window or t < window:
+                ns.add(t)
+            rem = t - (window - 1)
+            if window and 0 <= rem < tile:
+                ns |= {window - 1 + tile * m + rem for m in (1, 9)}
+    if window:
+        ns |= {window - 1, window, window + 1, window + 2 * tile + 7}
+    return sorted(x for x in ns if 0 <= x <= limit)
+
+
+def check_split_edges(torch, ks, gen) -> list[dict]:
+    """Every decode body (both layouts and KV types, window 0 and 700,
+    pages_per_block 1/2/4 on a packed table) at the heads of
+    ``SPLIT_EDGES["shapes"]``, held to its plain version with n_stale at
+    every edge of its own launch's key split, ``B`` slots a launch. Not
+    timed."""
+    c = SPLIT_EDGES
+    rows = []
+    for shape in c["shapes"]:
+        d = SHAPES[shape][0]
+        H, KV, Dh, page, NP, S = (d["H"], d["KV"], d["Dh"], d["page"],
+                                  d["NP"], d["S"])
+        for layout in ("paged", "contiguous"):
+            limit = NP * page if layout == "paged" else S
+            for window in c["windows"]:
+                for quant in (False, True):
+                    for ppb in ((1, 2, 4) if layout == "paged" else (1,)):
+                        def launch(n_list):
+                            args = decode_inputs(
+                                torch, gen, layout, quant, c["B"], H, KV,
+                                n_list, Dh, page, NP, S, window,
+                                packed=4 if ppb > 1 else 0)
+                            got = ks.call("decode", layout, args, window, ppb)
+                            return got, args, ks.launched_split(
+                                layout, window, ppb, quant, Dh, H // KV)
+                        # The split depends on shapes only: an empty launch
+                        # shows it before the edges are chosen.
+                        split = launch([0] * c["B"])[2]
+                        edges = split_edge_n_stale(split, limit, window)
+                        edges += [0] * (-len(edges) % c["B"])
+                        tag = (f"split edges {shape} {layout} "
+                               f"{'int8' if quant else 'bf16'} "
+                               f"window={window} ppb={ppb}")
+                        worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+                        for i in range(0, len(edges), c["B"]):
+                            got, args, ran = launch(edges[i:i + c["B"]])
+                            check(ran == split, f"{tag}: launched with {ran}, "
+                                                f"edges chosen for {split}")
+                            err = held(torch, tag, got, ks.call_plain(
+                                "decode", layout, _fp32(args), window))
+                            worst = {k: max(worst[k], err[k]) for k in worst}
+                        rows.append({
+                            "model": shape, "layout": layout,
+                            "kv": "int8" if quant else "bf16",
+                            "window": window, "pages_per_block": ppb,
+                            **split, "n_stale": edges, **worst})
+    emit({"phase": "split-edges", "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL,
+          "B": c["B"], "cases": rows})
+    for r in rows:
+        check(r["max_err_over_tol"] <= 1.0,
+              f"decode disagrees at a split edge: {r}")
+    return rows
 
 
 def check_prefill(torch, ks, gen, layout, quant, shape, T: int,
@@ -844,23 +968,23 @@ def check_insert(torch, gen, shape: str) -> dict:
 
 def kernel_phase(torch, ks, gen) -> list[dict]:
     """Phase 3: every kernel body at the main path's shapes — full
-    attention, both window shapes, the multi-page bodies — then every group
-    size and head width. Returns the timed rows."""
-    rows = []
+    attention, both window shapes, the multi-page bodies; the decode rows
+    first — then every group size and head width, then the decode bodies
+    at their split edges. Returns the timed rows."""
+    rows = decode_rows(torch, ks, gen)
     for shape in SHAPES:
         for layout in ("paged", "contiguous"):
             for quant in (False, True):
-                rows += check_decode(torch, ks, gen, layout, quant, shape)
                 for T in SHAPES[shape][1]["T"]:
                     rows += check_prefill(torch, ks, gen, layout, quant,
                                           shape, T)
     for shape in PPB_SHAPES:
         for quant in (False, True):
-            rows += check_decode(torch, ks, gen, "paged", quant, shape, PPBS)
             rows += check_prefill(torch, ks, gen, "paged", quant, shape,
                                   SHAPES[shape][1]["T"][0], PPBS)
     from llmapigateway_tpu_torch.ops import _kernels
     check_groups(torch, ks, _kernels.GROUP_SIZES, _kernels.HEAD_DIMS, gen)
+    check_split_edges(torch, ks, gen)
     return rows
 
 
@@ -1386,7 +1510,9 @@ def kernels_line(kernel_rows: list[dict], serve: dict,
             "launches": launches, "serve": run, "body": body,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "host_ms": r["host_ms"],
+            **{k: r[k] for k in ("n_split", "workspace_bytes") if k in r}}
     ins = insert_rows[0]
     launches = tools["profile_insert"]["kernel_launches"]
     check(launches > 0, "kv_insert: kernel #5 never ran in the tools phase")
@@ -1404,7 +1530,86 @@ def kernels_line(kernel_rows: list[dict], serve: dict,
     return {"kernels": list(rows.values())}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --decode-ab: the decode rows of several checkouts, one timer for all
+# ---------------------------------------------------------------------------
+
+# Run in a fresh process per tree: the tree's own chip_smoke.py and package
+# first on the path; this checkout's timer and decode_rows loaded by path.
+_AB_RUN = r"""
+import importlib.util, json, sys
+tree, here = sys.argv[1:3]
+sys.path.insert(0, tree)
+import torch
+def load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+timing = load("ab_timing", here + "/llmapigateway_tpu_torch/tools/_timing.py")
+this = load("ab_smoke", here + "/chip_smoke.py")
+import chip_smoke as cs
+cs.cuda_times = lambda torch, fn, iters=25, warmup=3: timing.device_times(
+    fn, iters, warmup)
+# A tree whose smoke keeps only a device ms gets [device ms, host ms].
+cs.cuda_ms = lambda torch, fn, iters=25, warmup=3: list(
+    timing.device_times(fn, iters, warmup))
+from llmapigateway_tpu_torch.ops import _kernels
+from llmapigateway_tpu_torch.ops import flash_attention as fa
+from llmapigateway_tpu_torch.ops import paged_attention as pa
+torch.backends.cuda.matmul.allow_tf32 = False
+_kernels.build()
+gen = torch.Generator(device="cuda").manual_seed(0)
+rows = this.decode_rows(torch, cs.Kernels(pa, fa), gen, cs)
+print("DECODE_AB " + json.dumps({
+    r["name"]: r["ms"] if isinstance(r["ms"], list)
+    else [r["ms"], r["host_ms"]] for r in rows}))
+"""
+
+
+def decode_ab(argv) -> int:
+    """Each tree's decode rows (:func:`decode_rows` over its own smoke's
+    cases, inputs and checks) in a fresh process, in the order given, all
+    timed by this checkout's timer: [device ms, host ms of one call] per
+    row and run and, for two distinct trees, each tree's median device and
+    host ms and the change / parent ratio of the device ms (first tree
+    first)."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --decode-ab")
+    ap.add_argument("trees", nargs="+", help="tree roots, in run order")
+    ap.add_argument("--out", help="also write the report here (JSON)")
+    args = ap.parse_args(argv)
+    runs = []
+    for tree in args.trees:
+        proc = subprocess.run(
+            [sys.executable, "-c", _AB_RUN, os.path.abspath(tree), HERE],
+            capture_output=True, text=True, cwd=os.path.abspath(tree))
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("DECODE_AB ")]
+        if proc.returncode != 0 or not lines:
+            print(f"chip_smoke --decode-ab: {tree} failed "
+                  f"({proc.returncode}):\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        runs.append((tree, json.loads(lines[-1][len("DECODE_AB "):])))
+    report = {"runs": [{"tree": t, "ms": ms} for t, ms in runs]}
+    trees = list(dict.fromkeys(args.trees))
+    if len(trees) == 2:
+        med = {t: {n: [statistics.median(ms[n][i] for tt, ms in runs
+                                         if tt == t) for i in (0, 1)]
+                   for n in runs[0][1]} for t in trees}
+        report["median_ms"] = med
+        report["ratio"] = {n: med[trees[1]][n][0] / med[trees[0]][n][0]
+                           for n in med[trees[0]]}
+    text = json.dumps(report, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+    return 0
+
+
+def main(argv=()) -> int:
     try:
         import torch
     except ImportError:
@@ -1414,6 +1619,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA card", file=sys.stderr)
         return 2
+    if argv[:1] == ["--decode-ab"]:
+        return decode_ab(argv[1:])
     sys.path.insert(0, HERE)
     try:
         from llmapigateway_tpu_torch.ops import _kernels
@@ -1479,4 +1686,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

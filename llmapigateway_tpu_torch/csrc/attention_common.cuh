@@ -1,17 +1,17 @@
-// Shared online-softmax block math of the four attention kernels.
+// Shared online-softmax block math of the attention kernels.
 //
 // The CUDA twin of the JAX package's single-copy block update
 // (llmapigateway_tpu/ops/flash_attention.py: self_column_init :60,
 // attend_block :79) and of the port's plain helpers
-// (llmapigateway_tpu_torch/ops/flash_attention.py). The kernels in
-// paged_attention.cu and flash_attention.cu are built from the two bodies
-// here, decode_body and prefill_body: a thread block owns R query rows
-// (decode: the G query heads of one KV head; prefill: a tile of query
-// positions of one head), keeps their fp32 state m/l in shared memory and
-// acc in registers, and walks the keys in shared-memory tiles of TILE_K
-// tokens.
+// (llmapigateway_tpu_torch/ops/flash_attention.py). The prefill kernels in
+// paged_attention.cu and flash_attention.cu are built from prefill_body
+// here: a thread block owns a tile of query positions of one head, keeps
+// their fp32 state m/l in shared memory and acc in registers, and walks the
+// keys in shared-memory tiles of TILE_K tokens. The decode kernels are built
+// from split_decode_body (decode_split.cuh), which shares the KV types, the
+// key addressing and the host dispatch below.
 //
-// The four kernels differ only in two template parameters of the bodies:
+// The kernels differ only in two template parameters of the bodies:
 // * how a key's row is found (Rows): PagedRows through the slot's
 //   page-table row, PagedRunRows through one table entry per aligned run
 //   of pages_per_block logical pages (the packed multi-page table),
@@ -19,27 +19,27 @@
 //   the same row index in every layout (scales are stored [.., KV, 1, N]
 //   beside values [.., KV, N, Dh]).
 // * the KV element type (KVT): Bf16KV, or Int8KV with a per-key fp32 scale.
-//   Int8 values are widened to bf16 in shared memory, which is exact (|q| <=
-//   127 needs 7 bits; bf16 keeps 8), so the score and PV loops are the same
-//   code; the int8 body multiplies each score by its key's scale after the
-//   Dh^-1/2 factor and before the mask, accumulates l from the UNSCALED
-//   probabilities, and multiplies each probability by its value's scale in
-//   the PV product.
+//   The prefill body widens int8 values to bf16 in shared memory, which is
+//   exact (|q| <= 127 needs 7 bits; bf16 keeps 8), so the score and PV loops
+//   are the same code; the int8 body multiplies each score by its key's
+//   scale after the Dh^-1/2 factor and before the mask, accumulates l from
+//   the UNSCALED probabilities, and multiplies each probability by its
+//   value's scale in the PV product.
 //
 // A sliding window (mistral family; HF semantics: key j is visible to the
 // query at position i iff i - j < window, the query itself included) is a
-// runtime argument: both bodies start their tile loop at the tile holding
+// runtime argument: the bodies start their tile walk at the tile holding
 // the first key any of their rows can see, so a windowed decode reads
 // O(window) keys, not O(context). Keys below that floor inside the first
 // tile are never read (zero-filled, as past-the-end keys are) and are
-// masked by select. window == 0 is full causal attention.
+// masked. window == 0 is full causal attention.
 //
 // The head width HD is a template parameter of everything below: the
 // kernels are built for the widths of the served presets (HEAD_DIMS: 64 for
 // tinyllama and qwen2, 96 for phi-3-mini, 128 for llama-3 and mistral, 256
-// for gemma). Shared-memory rows hold HD bf16 values as PAIRS 32-bit words
-// padded to ROW_WORDS words (an odd count), so a warp reading one column
-// across 32 rows hits 32 different banks.
+// for gemma). The prefill body's shared-memory rows hold HD bf16 values as
+// PAIRS 32-bit words padded to ROW_WORDS words (an odd count), so a warp
+// reading one column across 32 rows hits 32 different banks.
 //
 // Width 256 outgrows two fixed budgets of the 64-row prefill tile, and the
 // design answers both per width (Dims<HD>): (1) the accumulator — a thread
@@ -52,18 +52,15 @@
 // declaration may take — so a body whose Smem is larger takes it as
 // DYNAMIC shared memory, after the launcher raises the function's limit
 // (cudaFuncAttributeMaxDynamicSharedMemorySize). Every other prefill body
-// keeps a static declaration (body_smem), and the decode kernels declare
-// theirs in the kernel itself (at most 43,840 B, Dh 256 with 16 rows): a
-// decode Smem reached through body_smem's reference cost the bf16 flash
-// decode body 13% of its time on the card.
+// keeps a static declaration (body_smem).
 //
 // Decode rows are the G query heads of one KV head. The decode bodies are
 // built per row count R (1, 2, 4, 8, 16), and G is a runtime argument: a
 // group runs the body of R = G rounded up to a power of two (decode_rows),
 // so G 3 (llama-3b-class) and G 7 (qwen2-0.5b) run the 4- and 8-row bodies.
-// Rows >= G are zero-filled queries whose state is computed and never
-// written back; q and out are addressed with the true G (KV head kv owns
-// query heads kv*G .. kv*G + G - 1).
+// Rows >= G are zero queries whose state is computed and never written
+// back; q and out are addressed with the true G (KV head kv owns query
+// heads kv*G .. kv*G + G - 1).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,7 +96,7 @@ struct Dims {
 };
 
 // The decode body's row count for a group of G query heads: G rounded up
-// to a power of two, so the rows divide the block (RowAcc).
+// to a power of two, so the rows split over the block's warps.
 __host__ __device__ constexpr int decode_rows(int G) {
     int r = 1;
     while (r < G) r *= 2;
@@ -239,12 +236,7 @@ struct Smem {
     float m[R], l[R], alpha[R];
 };
 
-// The shared memory of the decode body of R rows, and of the prefill body,
-// for one KV type.
-template <int R, typename KVT>
-using DecodeSmem = Smem<R, KVT::kHD>;
-static_assert(sizeof(Smem<16, 256>) <= STATIC_SMEM_MAX,
-              "the largest decode body's shared memory must stay static");
+// The shared memory of the prefill body for one KV type.
 template <typename KVT>
 using PrefillSmem = Smem<Dims<KVT::kHD>::TILE_Q, KVT::kHD>;
 
@@ -312,35 +304,6 @@ __device__ __forceinline__ void load_kv_tile(
             ks_s[r] = row >= 0 ? __ldg(ks + row) : 0.f;
             vs_s[r] = row >= 0 ? __ldg(vs + row) : 0.f;
         }
-    }
-}
-
-// self_column_init: seed the state from the new token attending itself —
-// m = q . k_new * scale, l = 1, acc = v_new. The stale cache does not hold
-// the current token (deferred insert), so its contribution starts here, at
-// full precision in both KV types.
-template <int R, int HD>
-__device__ __forceinline__ void self_column_init(
-        const uint32_t* q_s, const bf16* k_new, const bf16* v_new,
-        float scale, float* m_s, float* l_s, RowAcc<R, HD>& acc) {
-    constexpr int PAIRS = Dims<HD>::PAIRS, ROW_WORDS = Dims<HD>::ROW_WORDS;
-    const uint32_t* kn = reinterpret_cast<const uint32_t*>(k_new);
-    const uint32_t* vn = reinterpret_cast<const uint32_t*>(v_new);
-    for (int r = threadIdx.x; r < R; r += NTHREADS) {
-        float s = 0.f;
-        for (int p = 0; p < PAIRS; ++p) {
-            const uint32_t qw = q_s[r * ROW_WORDS + p], kw = kn[p];
-            s += bf16_lo(qw) * bf16_lo(kw) + bf16_hi(qw) * bf16_hi(kw);
-        }
-        m_s[r] = s * scale;
-        l_s[r] = 1.f;
-    }
-#pragma unroll
-    for (int i = 0; i < RowAcc<R, HD>::NPAIR; ++i) {
-        const int p = acc.pair(i);
-        const uint32_t w = p < PAIRS ? vn[p] : 0u;
-        acc.x[i] = bf16_lo(w);
-        acc.y[i] = bf16_hi(w);
     }
 }
 
@@ -439,47 +402,12 @@ __device__ __forceinline__ void write_row(const RowAcc<R, HD>& acc,
 }
 
 // --------------------------------------------------------------------------
-// The two bodies
+// The prefill body
 // --------------------------------------------------------------------------
 
 // The first key position a query at `q_pos` sees under `window` (0: all).
 __device__ __forceinline__ int window_floor(int q_pos, int window) {
     return window > 0 ? max(q_pos - (window - 1), 0) : 0;
-}
-
-// Decode: the G query heads of one KV head of one slot (rows q[0..G), HD
-// apart) against the stale keys [lo, n) plus the self column; outputs to the
-// G rows at `out`. The body holds R = decode_rows(G) >= G rows: rows
-// G..R-1 are zero queries, never written. The tile loop starts at the tile
-// holding `lo` (the window's floor, 0 without a window).
-template <int R, typename KVT, typename Rows>
-__device__ __forceinline__ void decode_body(
-        DecodeSmem<R, KVT>& sm, int G, const bf16* q, const bf16* k_new,
-        const bf16* v_new, const typename KVT::elem* k,
-        const typename KVT::elem* v, const float* ks, const float* vs,
-        const Rows& rows, int lo, int n, float scale, bf16* out) {
-    constexpr int HD = KVT::kHD;
-    load_q_rows<HD>(q, HD, G, R, sm.q);
-    __syncthreads();
-    RowAcc<R, HD> acc;
-    self_column_init<R, HD>(sm.q, k_new, v_new, scale, sm.m, sm.l, acc);
-    for (int pos0 = lo - lo % TILE_K; pos0 < n; pos0 += TILE_K) {
-        __syncthreads();    // the previous tile's readers are done
-        load_kv_tile<KVT>(k, v, ks, vs, rows, pos0, lo, n, sm.k, sm.v, sm.ks,
-                          sm.vs);
-        __syncthreads();
-        tile_scores<R, HD, KVT::kQuant>(
-            sm.q, sm.k, sm.ks, scale, sm.s, [=](int, int j) {
-                const int pos = pos0 + j;
-                return pos >= lo && pos < n;
-            });
-        __syncthreads();
-        attend_block<R, HD, KVT::kQuant>(sm.s, sm.v, sm.vs, sm.m, sm.l,
-                                         sm.alpha, acc);
-    }
-    __syncthreads();
-    if (acc.row() < G)
-        write_row<R, HD>(acc, sm.l, out + acc.row() * HD);
 }
 
 // Prefill: a tile of `rows_in_tile` query positions first_q, first_q + 1, ...

@@ -7,13 +7,14 @@
 // query token per slot against its row of the STALE cache [Bc, KV, S, Dh]
 // (ragged by n_stale) plus the self column, GQA inside the kernel.
 //   Bound: bytes, as the paged decode kernel's (every live K/V byte read
-//   once; 2*G flops a byte). Design: the paged decode kernel's, with keys
-//   found by a row stride instead of a page table: one block per (KV head,
-//   slot), G query rows in shared memory, 16-byte loads of 32-key tiles up
-//   to n_stale, nothing past it read. The Pallas kernel's BlockSpec clamp
-//   that elides dead blocks' DMA becomes a loop bound — at both ends under a
-//   sliding window (keys from w0 = max(n_stale - (window - 1), 0), :160-176),
-//   so a windowed decode reads O(window) keys of the row, not O(context).
+//   once; 2*G flops a byte). Design: the paged decode kernel's split body
+//   (decode_split.cuh: the key range split across blocks, a cp.async ring,
+//   warp-parallel math, a combine pass), with keys found by a row stride
+//   instead of a page table, nothing past n_stale read. The Pallas kernel's
+//   BlockSpec clamp that elides dead blocks' DMA becomes the split's bounds
+//   — at both ends under a sliding window (keys from w0 = max(n_stale -
+//   (window - 1), 0), :160-176), so a windowed decode reads O(window) keys of
+//   the row, not O(context).
 //
 // flash_prefill_kernel replaces flash_prefill_attention / _prefill_kernel
 // (:329, :282): a chunk of T queries at positions start + t, causal over the
@@ -32,11 +33,12 @@
 // attention_common.cuh over DenseRows, in a bf16 and an int8 instantiation
 // for each head width (64, 96, 128, 256) and, for decode, each row count
 // (1, 2, 4, 8, 16: groups 1, 2, 3, 4, 7, 8, 16 rounded up, the group itself
-// a runtime argument); the Dh 256 prefill body's shared memory is dynamic
-// (past the 48 KiB static limit).
+// a runtime argument); the Dh 256 prefill body's and the Dh 256 bf16 decode
+// body's shared memory is dynamic (past the 48 KiB static limit).
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError().
 #include "attention_common.cuh"
+#include "decode_split.cuh"
 
 using namespace pa;
 
@@ -50,10 +52,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(
         const typename KVT::elem* __restrict__ v,
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales, const int* __restrict__ row_map,
-        const int* __restrict__ n_stale, bf16* __restrict__ out, int G,
-        int KV, int S, float scale, int window) {
+        const int* __restrict__ n_stale, bf16* __restrict__ out,
+        float* __restrict__ ws, int B, int G, int KV, int S, float scale,
+        int window, int n_split, int split_keys) {
     constexpr int HD = KVT::kHD;
-    __shared__ DecodeSmem<R, KVT> sm;           // <= 43,840 B: always static
+    auto& sm = body_smem<SplitSmem<R, KVT>>();
     const int kv = blockIdx.x, b = blockIdx.y;
     const long long head0 = ((long long)b * KV + kv) * G;
     const long long self_off = ((long long)b * KV + kv) * HD;
@@ -61,9 +64,10 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(
     const DenseRows rows{(row * KV + kv) * S, S};
     const int n = min(n_stale[b], S);
     const int w0 = window_floor(n_stale[b], window);
-    decode_body<R, KVT>(
+    split_decode_body<R, KVT>(
         sm, G, q + head0 * HD, k_new + self_off, v_new + self_off, k, v,
-        k_scales, v_scales, rows, w0, n, scale, out + head0 * HD);
+        k_scales, v_scales, rows, w0, n, scale, n_split, split_keys,
+        out + head0 * HD, SplitParts(ws, B, KV, G, HD, n_split, b, kv));
 }
 
 template <typename KVT>
@@ -91,24 +95,33 @@ __global__ void __launch_bounds__(NTHREADS) flash_prefill_kernel(
                       out + q0);
 }
 
+// The partial pass over grid (KV, B, n_split), then (n_split > 1) the
+// combine; `err` takes the first launch error. False for a group the
+// kernels are not built for.
 template <typename KVT>
 bool launch_decode(const void* q, const void* k_new, const void* v_new,
                    const void* k, const void* v, const void* ks,
                    const void* vs, const void* row_map, const void* n_stale,
-                   void* out, int B, int G, int KV, int S, float scale,
-                   int window, cudaStream_t stream) {
+                   void* out, void* ws, int B, int G, int KV, int S,
+                   float scale, int window, int n_split, int split_keys,
+                   cudaStream_t stream, cudaError_t& err) {
     using E = typename KVT::elem;
-    return with_rows(G, [&](auto r) {
-        flash_decode_kernel<decltype(r)::value, KVT>
-            <<<dim3(KV, B), NTHREADS, 0, stream>>>(
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
-                static_cast<const bf16*>(v_new), static_cast<const E*>(k),
-                static_cast<const E*>(v), static_cast<const float*>(ks),
-                static_cast<const float*>(vs),
-                static_cast<const int*>(row_map),
-                static_cast<const int*>(n_stale), static_cast<bf16*>(out), G,
-                KV, S, scale, window);
+    const bool ok = with_rows(G, [&](auto r) {
+        constexpr int R = decltype(r)::value;
+        err = launch_with_smem<SplitSmem<R, KVT>>(
+            flash_decode_kernel<R, KVT>, dim3(KV, B, n_split), stream,
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
+            static_cast<const bf16*>(v_new), static_cast<const E*>(k),
+            static_cast<const E*>(v), static_cast<const float*>(ks),
+            static_cast<const float*>(vs), static_cast<const int*>(row_map),
+            static_cast<const int*>(n_stale), static_cast<bf16*>(out),
+            static_cast<float*>(ws), B, G, KV, S, scale, window, n_split,
+            split_keys);
     });
+    if (ok && err == cudaSuccess && n_split > 1)
+        err = launch_combine<KVT::kHD>(ws, n_stale, out, B, G, KV, S, window,
+                                       n_split, split_keys, stream);
+    return ok;
 }
 
 // Returns the error of a refused attribute call for a body above 48 KiB of
@@ -134,22 +147,30 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
 
 // k/v: the cache layer [Bc, KV, S, Dh] (bf16, or int8 when `quant`); ks/vs:
 // the int8 scales [Bc, KV, 1, S] (ignored for bf16); row_map: [B] or null;
-// window: 0 or the sliding window.
+// window: 0 or the sliding window; n_split, split_keys: the key split
+// (ops/_kernels.py decode_splits), which must cover decode_extent(S,
+// window); ws: the fp32 workspace of B * KV * n_split * G * (head_dim + 2)
+// floats (null for one split).
 extern "C" int flash_decode_attention(
         const void* q, const void* k_new, const void* v_new, const void* k,
         const void* v, const void* ks, const void* vs, const void* row_map,
-        const void* n_stale, void* out, int B, int H, int KV, int head_dim,
-        int S, float scale, int quant, int window, void* stream) {
-    if (B < 0 || KV <= 0 || H % KV != 0 || S < 0 || window < 0)
+        const void* n_stale, void* out, void* ws, int B, int H, int KV,
+        int head_dim, int S, float scale, int quant, int window, int n_split,
+        int split_keys, void* stream) {
+    if (B < 0 || KV <= 0 || H % KV != 0 || S < 0 || window < 0 ||
+        bad_split(n_split, split_keys, decode_extent(S, window), ws))
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
     const bool ok = with_kv_type(quant, head_dim, [&](auto kvt) {
         return launch_decode<decltype(kvt)>(q, k_new, v_new, k, v, ks, vs,
-                                            row_map, n_stale, out, B, H / KV,
-                                            KV, S, scale, window, s);
+                                            row_map, n_stale, out, ws, B,
+                                            H / KV, KV, S, scale, window,
+                                            n_split, split_keys, s, err);
     });
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,20 +6,18 @@
 // one query token per slot against the STALE page pool (ragged by n_stale)
 // plus the self column, GQA handled in the kernel, with its two variants:
 // a sliding window (stale keys from w0 = max(n_stale - (window - 1), 0)
-// only; the tile loop starts at w0's tile, so a windowed decode reads
+// only; a slot's splits start at w0's tile, so a windowed decode reads
 // O(window) keys and never touches a page below the window, which the SWA
 // ring may have recycled) and multi-page blocks (pages_per_block > 1: one
 // table lookup per aligned run of pages, PagedRunRows).
 //   Bound: bytes. Every live K/V byte is read once (B * n * KV * Dh * 2 * 2
 //   in bf16, half that plus 8 bytes of scales a key in int8) and each byte
-//   feeds 2*G flops, far below the card's ~295 flop/byte ridge. Design: one
-//   block per (KV head, slot) keeps its G query rows in shared memory, so
-//   K/V stream from the pool exactly once per group (never repeated per
-//   query head); 16-byte coalesced loads of 32-key tiles through the slot's
-//   page table; only live keys are read. Known weakness: B * KV blocks (64
-//   at batch 8 for llama-3-8b) underfill 132 SMs, and a tile's loads do not
-//   overlap its math (no split of the key range across blocks, no
-//   cp.async/TMA pipeline yet).
+//   feeds 2*G flops, far below the card's ~295 flop/byte ridge. Design
+//   (decode_split.cuh): the slot's key range split across blocks, grid
+//   (KV, B, n_split), each block's 32-key tiles streamed through a cp.async
+//   ring, warp-parallel scores and softmax, and a combine pass over the
+//   splits' partial states; K/V stream from the pool once per group (never
+//   repeated per query head).
 //
 // paged_prefill_kernel replaces paged_prefill_attention /
 // _paged_prefill_kernel (:438, :384): a chunk of T queries at positions
@@ -34,15 +32,16 @@
 //   as decode: a window walks keys from the floor of the tile's first query
 //   (page live iff (lp + 1) * page - 1 > first_q - window, :404-426).
 //
-// Both are the shared bodies of attention_common.cuh over PagedRows (ppb 1)
-// or PagedRunRows (ppb > 1), in a bf16 and an int8 instantiation for each
-// head width (64, 96, 128, 256) and, for decode, each row count (1, 2, 4,
-// 8, 16: groups 1, 2, 3, 4, 7, 8, 16 rounded up, the group itself a runtime
-// argument); the window is a runtime argument. The Dh 256 prefill
-// body's shared memory is dynamic (past the 48 KiB static limit).
+// Both run over PagedRows (ppb 1) or PagedRunRows (ppb > 1), in a bf16 and
+// an int8 instantiation for each head width (64, 96, 128, 256) and, for
+// decode, each row count (1, 2, 4, 8, 16: groups 1, 2, 3, 4, 7, 8, 16
+// rounded up, the group itself a runtime argument); the window is a runtime
+// argument. The Dh 256 prefill body's and the Dh 256 bf16 decode body's
+// shared memory is dynamic (past the 48 KiB static limit).
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError().
 #include "attention_common.cuh"
+#include "decode_split.cuh"
 
 using namespace pa;
 
@@ -57,10 +56,11 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales,
         const int* __restrict__ page_table, const int* __restrict__ n_stale,
-        bf16* __restrict__ out, int G, int KV, int page, int NP,
-        float scale, int window, int ppb) {
+        bf16* __restrict__ out, float* __restrict__ ws, int B, int G, int KV,
+        int page, int NP, float scale, int window, int ppb, int n_split,
+        int split_keys) {
     constexpr int HD = KVT::kHD;
-    __shared__ DecodeSmem<R, KVT> sm;           // <= 43,840 B: always static
+    auto& sm = body_smem<SplitSmem<R, KVT>>();
     const int kv = blockIdx.x, b = blockIdx.y;
     // Query heads kv*G .. kv*G+G-1 of slot b are contiguous rows of q
     // [B, H, Dh] and of out [B, H*Dh] (the JAX kernel's qg reshape).
@@ -72,9 +72,10 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(
     // query sits at position n_stale[b].
     const int n = min(n_stale[b], NP * page);
     const int w0 = window_floor(n_stale[b], window);
-    decode_body<R, KVT>(
+    split_decode_body<R, KVT>(
         sm, G, q + head0 * HD, k_new + self_off, v_new + self_off, k_pages,
-        v_pages, k_scales, v_scales, rows, w0, n, scale, out + head0 * HD);
+        v_pages, k_scales, v_scales, rows, w0, n, scale, n_split, split_keys,
+        out + head0 * HD, SplitParts(ws, B, KV, G, HD, n_split, b, kv));
 }
 
 template <typename KVT, typename Rows>
@@ -105,25 +106,35 @@ __global__ void __launch_bounds__(NTHREADS) paged_prefill_kernel(
                       scale, out + row0);
 }
 
+// The partial pass over grid (KV, B, n_split), then (n_split > 1) the
+// combine; `err` takes the first launch error. False for a group the
+// kernels are not built for.
 template <typename KVT, typename Rows>
 bool launch_decode(const void* q, const void* k_new, const void* v_new,
                    const void* k, const void* v, const void* ks,
                    const void* vs, const void* page_table,
-                   const void* n_stale, void* out, int B, int G, int KV,
-                   int page, int NP, float scale, int window, int ppb,
-                   cudaStream_t stream) {
+                   const void* n_stale, void* out, void* ws, int B, int G,
+                   int KV, int page, int NP, float scale, int window, int ppb,
+                   int n_split, int split_keys, cudaStream_t stream,
+                   cudaError_t& err) {
     using E = typename KVT::elem;
-    return with_rows(G, [&](auto r) {
-        paged_decode_kernel<decltype(r)::value, KVT, Rows>
-            <<<dim3(KV, B), NTHREADS, 0, stream>>>(
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
-                static_cast<const bf16*>(v_new), static_cast<const E*>(k),
-                static_cast<const E*>(v), static_cast<const float*>(ks),
-                static_cast<const float*>(vs),
-                static_cast<const int*>(page_table),
-                static_cast<const int*>(n_stale), static_cast<bf16*>(out),
-                G, KV, page, NP, scale, window, ppb);
+    const bool ok = with_rows(G, [&](auto r) {
+        constexpr int R = decltype(r)::value;
+        err = launch_with_smem<SplitSmem<R, KVT>>(
+            paged_decode_kernel<R, KVT, Rows>, dim3(KV, B, n_split), stream,
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
+            static_cast<const bf16*>(v_new), static_cast<const E*>(k),
+            static_cast<const E*>(v), static_cast<const float*>(ks),
+            static_cast<const float*>(vs),
+            static_cast<const int*>(page_table),
+            static_cast<const int*>(n_stale), static_cast<bf16*>(out),
+            static_cast<float*>(ws), B, G, KV, page, NP, scale, window, ppb,
+            n_split, split_keys);
     });
+    if (ok && err == cudaSuccess && n_split > 1)
+        err = launch_combine<KVT::kHD>(ws, n_stale, out, B, G, KV, NP * page,
+                                       window, n_split, split_keys, stream);
+    return ok;
 }
 
 // Returns the error of a refused attribute call for a body above 48 KiB of
@@ -167,24 +178,33 @@ static bool bad_variant(int window, int ppb, int NP) {
 
 // k/v: the pools (bf16, or int8 when `quant`); ks/vs: the int8 scales
 // [P, KV, 1, page] (ignored for bf16); window: 0 or the sliding window;
-// ppb: pages_per_block (the table must be packed in runs of ppb).
+// ppb: pages_per_block (the table must be packed in runs of ppb); n_split,
+// split_keys: the key split (ops/_kernels.py decode_splits), which must
+// cover decode_extent(NP * page, window); ws: the fp32 workspace of
+// B * KV * n_split * G * (head_dim + 2) floats (null for one split).
 extern "C" int paged_decode_attention(
         const void* q, const void* k_new, const void* v_new, const void* k,
         const void* v, const void* ks, const void* vs,
-        const void* page_table, const void* n_stale, void* out, int B, int H,
-        int KV, int head_dim, int page, int NP, float scale, int quant,
-        int window, int ppb, void* stream) {
+        const void* page_table, const void* n_stale, void* out, void* ws,
+        int B, int H, int KV, int head_dim, int page, int NP, float scale,
+        int quant, int window, int ppb, int n_split, int split_keys,
+        void* stream) {
     if (B < 0 || KV <= 0 || H % KV != 0 || page <= 0 || NP <= 0 ||
-        bad_variant(window, ppb, NP))
+        bad_variant(window, ppb, NP) ||
+        bad_split(n_split, split_keys,
+                  decode_extent((long long)NP * page, window), ws))
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0) return 0;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
     const bool ok = with_body(quant, head_dim, ppb, [&](auto kvt, auto rows) {
         return launch_decode<decltype(kvt), decltype(rows)>(
-            q, k_new, v_new, k, v, ks, vs, page_table, n_stale, out, B,
-            H / KV, KV, page, NP, scale, window, ppb, s);
+            q, k_new, v_new, k, v, ks, vs, page_table, n_stale, out, ws, B,
+            H / KV, KV, page, NP, scale, window, ppb, n_split, split_keys, s,
+            err);
     });
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 

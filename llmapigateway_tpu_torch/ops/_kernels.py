@@ -27,6 +27,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -37,9 +38,18 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("paged_attention", "flash_attention", "kv_insert")  # csrc/<name>.cu
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "decode_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# The decode kernels split each slot's key range across blocks
+# (csrc/decode_split.cuh); these mirror its constants.
+TILE_K = 32                 # keys per tile; a split is whole tiles
+SM_COUNT = 132              # streaming multiprocessors of an H100 SXM: the
+                            # planner's default; launches read the card's own
+TARGET_WAVES = 16           # blocks aimed at: this many per SM
+MIN_SPLIT_TILES = 4         # below this the ring has nothing to overlap
+MAX_SPLITS = 64             # csrc/decode_split.cuh MAX_SPLITS
 
 _build_lock = threading.Lock()
 
@@ -126,13 +136,81 @@ def unsupported_geometry(head_dim: int, n_heads: int, n_kv_heads: int,
     return None
 
 
+class DecodeSplits(NamedTuple):
+    """A decode launch's key split: ``n_split`` blocks per (slot, KV
+    head), split s covering positions ``[base + s·split_keys, base +
+    (s+1)·split_keys)`` of the slot's live range (``base``: the window
+    floor rounded down to a tile)."""
+    n_split: int
+    split_keys: int
+
+
+def decode_extent(limit: int, window: int) -> int:
+    """The key extent a decode launch's splits must cover: the cache's
+    reach ``limit`` (``NP·page`` or ``S``), capped under a window at the
+    keys from the tile holding the window's floor (``window + TILE_K``)."""
+    return min(limit, window + TILE_K) if window else limit
+
+
+def decode_splits(B: int, KV: int, extent: int, page: int = 0,
+                  sm_count: int = SM_COUNT) -> DecodeSplits:
+    """Plan the decode kernels' key split from shapes alone (``n_stale``
+    is never read on the host: a sync per layer would stall the step).
+    Aim at ``TARGET_WAVES`` (16) blocks per SM over ``B·KV``
+    (slot, KV head) pairs, splits of at least ``MIN_SPLIT_TILES`` tiles and
+    at most ``MAX_SPLITS``; a split is whole tiles and, on a paged layout
+    whose page is whole tiles, whole pages (or a divisor of one), so a
+    page's keys are never split between blocks. One split means no
+    workspace and no combine."""
+    tiles = max(1, -(-extent // TILE_K))
+    want = -(-TARGET_WAVES * sm_count // max(1, B * KV))
+    n = max(1, min(want, tiles // MIN_SPLIT_TILES, MAX_SPLITS))
+    split_tiles = -(-tiles // n)
+    if page and page % TILE_K == 0:
+        per_page = page // TILE_K
+        if split_tiles >= per_page:
+            split_tiles = -(-split_tiles // per_page) * per_page
+        else:
+            while per_page % split_tiles:
+                split_tiles += 1
+    return DecodeSplits(-(-tiles // split_tiles), split_tiles * TILE_K)
+
+
+@functools.cache
+def decode_plan(B: int, KV: int, limit: int, window: int, page: int = 0,
+                sm_count: int = SM_COUNT) -> DecodeSplits:
+    """The key split a decode launch runs with: ``decode_splits`` over
+    ``decode_extent(limit, window)``, cached per geometry (the wrappers
+    plan once per layer call). Splits hold whole pages only without a
+    window: a window's floor starts a slot's splits mid-page."""
+    return decode_splits(B, KV, decode_extent(limit, window),
+                         0 if window else page, sm_count)
+
+
+@functools.cache
+def device_sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, which the decode planner
+    spreads its blocks over."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def workspace_floats(plan: DecodeSplits, B: int, KV: int, G: int,
+                     Dh: int) -> int:
+    """fp32 workspace of a split decode launch: each split's unnormalised
+    acc ``[B, KV, n_split, G, Dh]`` and its m and l ``[B, KV, n_split,
+    G]``; none for one split."""
+    if plan.n_split == 1:
+        return 0
+    return B * KV * plan.n_split * G * (Dh + 2)
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[name].path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "paged_attention":
         lib.paged_decode_attention.argtypes = (
-            [ptr] * 10 + [i32] * 6 + [f32] + [i32] * 3 + [ptr])
+            [ptr] * 11 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
         lib.paged_prefill_attention.argtypes = (
             [ptr] * 8 + [i32] * 7 + [f32] + [i32] * 3 + [ptr])
         entries = ("paged_decode_attention", "paged_prefill_attention")
@@ -142,7 +220,7 @@ def library(name: str) -> ctypes.CDLL:
         entries = ("kv_insert", "empty_launch")
     else:
         lib.flash_decode_attention.argtypes = (
-            [ptr] * 10 + [i32] * 5 + [f32] + [i32] * 2 + [ptr])
+            [ptr] * 11 + [i32] * 5 + [f32] + [i32] * 4 + [ptr])
         lib.flash_prefill_attention.argtypes = (
             [ptr] * 8 + [i32] * 6 + [f32] + [i32] * 2 + [ptr])
         entries = ("flash_decode_attention", "flash_prefill_attention")
@@ -174,18 +252,20 @@ def _ptr(t: torch.Tensor | None):
 # bf16 cache — and tensors whose shapes, types and devices the wrapper
 # (ops/paged_attention.py, ops/flash_attention.py) has checked; ``window``
 # (0: full causal) and, for the paged kernels, ``ppb`` (pages_per_block)
-# select the variant.
+# select the variant. The decode launchers take the wrapper's key split
+# (``decode_splits``) and its fp32 workspace (None for one split).
 
 def launch_paged_decode(q, k_new, v_new, k, v, quant, page_table, n_stale,
-                        out, window: int, ppb: int) -> None:
+                        out, window: int, ppb: int, plan: DecodeSplits,
+                        ws) -> None:
     B, H, Dh = q.shape
     KV, page = k[0].shape[1], k[0].shape[2]
     _call("paged_attention", "paged_decode_attention", q.device,
           q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[0].data_ptr(),
           v[0].data_ptr(), _ptr(k[1]), _ptr(v[1]), page_table.data_ptr(),
-          n_stale.data_ptr(), out.data_ptr(),
+          n_stale.data_ptr(), out.data_ptr(), _ptr(ws),
           B, H, KV, Dh, page, page_table.shape[1], Dh ** -0.5, int(quant),
-          window, ppb)
+          window, ppb, plan.n_split, plan.split_keys)
 
 
 def launch_paged_prefill(q, k, v, quant, page_table, start, out,
@@ -200,14 +280,15 @@ def launch_paged_prefill(q, k, v, quant, page_table, start, out,
 
 
 def launch_flash_decode(q, k_new, v_new, k, v, quant, rows, n_stale,
-                        out, window: int) -> None:
+                        out, window: int, plan: DecodeSplits, ws) -> None:
     B, H, Dh = q.shape
     KV, S = k[0].shape[1], k[0].shape[2]
     _call("flash_attention", "flash_decode_attention", q.device,
           q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k[0].data_ptr(),
           v[0].data_ptr(), _ptr(k[1]), _ptr(v[1]), _ptr(rows),
-          n_stale.data_ptr(), out.data_ptr(),
-          B, H, KV, Dh, S, Dh ** -0.5, int(quant), window)
+          n_stale.data_ptr(), out.data_ptr(), _ptr(ws),
+          B, H, KV, Dh, S, Dh ** -0.5, int(quant), window, plan.n_split,
+          plan.split_keys)
 
 
 def launch_flash_prefill(q, k, v, quant, rows, start, out,

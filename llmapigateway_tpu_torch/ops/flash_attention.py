@@ -36,7 +36,9 @@ attention. The kernels then walk only the keys inside the window.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``flash_decode_attention.launches``), and per body and head geometry in the
 dict ``.body_launches`` (``"full/bf16/Dh128/G4"``; see :func:`body_name`),
-both incremented only where the kernel is launched; it launches the kernel
+both incremented only where the kernel is launched; a decode wrapper also
+keeps the key split and workspace its body's latest launch ran with in
+``.body_splits`` (see :func:`split_record`). It launches the kernel
 for a CUDA tensor, takes the plain version for a CPU tensor, and raises for
 anything else — it never falls back.
 """
@@ -274,6 +276,22 @@ def check_window(name: str, window: int) -> None:
                          f"got {window}")
 
 
+def decode_workspace(plan, B: int, KV: int, G: int, Dh: int, device):
+    """The fp32 workspace of a split decode launch (``plan``:
+    ``_kernels.decode_splits``), allocated per call with ``torch.empty`` —
+    the kernels allocate nothing; None for one split."""
+    n = _kernels.workspace_floats(plan, B, KV, G, Dh)
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
+def split_record(plan, ws) -> dict:
+    """What a decode launch ran with: its key split (``plan``) and the
+    bytes of the workspace it was given (0 for one split)."""
+    return {"n_split": plan.n_split, "split_keys": plan.split_keys,
+            "workspace_bytes": 0 if ws is None
+            else ws.numel() * ws.element_size()}
+
+
 def variant_name(window: int, pages_per_block: int = 1) -> str:
     """The kernel body a launch ran: ``"full"`` or ``"window"``, and for a
     multi-page paged launch ``"_ppb<n>"`` after it."""
@@ -290,16 +308,20 @@ def body_name(window: int, pages_per_block: int, quant: bool,
             f"{'int8' if quant else 'bf16'}/Dh{head_dim}/G{group}")
 
 
-def count_launch(fn, body: str) -> None:
+def count_launch(fn, body: str, split: dict | None = None) -> None:
     """One kernel launch of wrapper ``fn``'s ``body``: the total
-    ``fn.launches`` and ``fn.body_launches[body]``."""
+    ``fn.launches`` and ``fn.body_launches[body]``; a decode launch's
+    ``split`` (:func:`split_record`) replaces ``fn.body_splits[body]``."""
     fn.launches += 1
     fn.body_launches[body] = fn.body_launches.get(body, 0) + 1
+    if split is not None:
+        fn.body_splits[body] = split
 
 
 def reset_launches(fn) -> None:
     fn.launches = 0
     fn.body_launches = {}
+    fn.body_splits = {}
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +334,9 @@ def flash_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                            rows: torch.Tensor | None = None, *,
                            window: int = 0) -> torch.Tensor:
     """Ragged single-token attention over a STALE contiguous cache plus the
-    new token (self column folded into the online-softmax init).
+    new token (self column folded into the online-softmax init). The
+    kernel splits each row's key range across blocks and combines the
+    splits (``_kernels.decode_splits``, planned from shapes only).
 
     q: [B, H, Dh] (RoPE applied); k_new/v_new: [B, KV, Dh] (not yet in the
     cache; full precision under int8 KV); layer_k/v: [Bc, KV, S, Dh] or the
@@ -342,11 +366,15 @@ def flash_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                               {"layer_k": layer_k, "layer_v": layer_v},
                               {"n_stale": n_stale, "rows": rows})
     out = torch.empty((B, H * Dh), dtype=q.dtype, device=q.device)
-    _kernels.launch_flash_decode(q, k_new, v_new, split_kv(layer_k),
-                                 split_kv(layer_v), quant, rows, n_stale,
-                                 out, window)
+    plan = _kernels.decode_plan(B, KV, kq.shape[2], window, 0,
+                                _kernels.device_sm_count(q.device))
+    ws = decode_workspace(plan, B, KV, H // KV, Dh, q.device)
+    _kernels.launch_flash_decode(
+        q, k_new, v_new, split_kv(layer_k), split_kv(layer_v), quant, rows,
+        n_stale, out, window, plan, ws)
     count_launch(flash_decode_attention,
-                 body_name(window, 1, quant, Dh, H // KV))
+                 body_name(window, 1, quant, Dh, H // KV),
+                 split_record(plan, ws))
     return out
 
 

@@ -21,7 +21,8 @@ Kernels (``csrc/paged_attention.cu``, built and bound by ops/_kernels.py):
 
 * :func:`paged_decode_attention` replaces the Pallas kernel
   ``paged_decode_attention`` / ``_paged_decode_kernel``
-  (llmapigateway_tpu/ops/paged_attention.py:272, :204).
+  (llmapigateway_tpu/ops/paged_attention.py:272, :204); its body is
+  ``csrc/decode_split.cuh``.
 * :func:`paged_prefill_attention` replaces ``paged_prefill_attention`` /
   ``_paged_prefill_kernel`` (:438, :384).
 
@@ -51,7 +52,8 @@ from ..models.llama import quantize_kv, zeros_kv
 from . import _kernels
 from .flash_attention import (body_name, causal_core, check_geometry,
                               check_kernel_args, check_window, count_launch,
-                              decode_core, reset_launches, split_kv)
+                              decode_core, decode_workspace, reset_launches,
+                              split_kv, split_record)
 
 
 class PagedKVCache(NamedTuple):
@@ -247,7 +249,9 @@ def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                            n_stale: torch.Tensor, *, window: int = 0,
                            pages_per_block: int = 1) -> torch.Tensor:
     """Ragged single-token attention over the STALE page pool plus the new
-    token (self column folded into the online-softmax init).
+    token (self column folded into the online-softmax init). The kernel
+    splits each slot's key range across blocks and combines the splits
+    (``_kernels.decode_splits``, planned from shapes only).
 
     q: [B, H, Dh] (RoPE applied); k_new/v_new: [B, KV, Dh];
     k_pages/v_pages: [P, KV, page, Dh] or the int8 ``{"q","s"}`` dicts;
@@ -278,11 +282,16 @@ def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                               {"k_pages": k_pages, "v_pages": v_pages},
                               {"page_table": page_table, "n_stale": n_stale})
     out = torch.empty((B, H * Dh), dtype=q.dtype, device=q.device)
-    _kernels.launch_paged_decode(q, k_new, v_new, split_kv(k_pages),
-                                 split_kv(v_pages), quant, page_table,
-                                 n_stale, out, window, pages_per_block)
+    page = kq.shape[2]
+    plan = _kernels.decode_plan(B, KV, page_table.shape[1] * page, window,
+                                page, _kernels.device_sm_count(q.device))
+    ws = decode_workspace(plan, B, KV, H // KV, Dh, q.device)
+    _kernels.launch_paged_decode(
+        q, k_new, v_new, split_kv(k_pages), split_kv(v_pages), quant,
+        page_table, n_stale, out, window, pages_per_block, plan, ws)
     count_launch(paged_decode_attention,
-                 body_name(window, pages_per_block, quant, Dh, H // KV))
+                 body_name(window, pages_per_block, quant, Dh, H // KV),
+                 split_record(plan, ws))
     return out
 
 

@@ -1,6 +1,6 @@
-"""Tools that drive the port's engine and kernels, each the counterpart of
-the JAX package's script of the same name in ``tools/`` (which is left as
-it is):
+"""Tools that drive the port's engine and kernels. Three are the
+counterparts of the JAX package's scripts of the same name in ``tools/``
+(which is left as it is):
 
 * ``profile_insert`` — KV-insert strategies of the decode step, and kernel
   #5 (``csrc/kv_insert.cu``, the port of ``insert_pallas``) with its wrapper.
@@ -9,9 +9,14 @@ it is):
 * ``profile_engine_burst`` — the engine's own decode bursts, host enqueue
   split from the final fetch.
 
-Each runs as ``python -m llmapigateway_tpu_torch.tools.<name>`` on the card
-(``--device cuda``, the default) or on the CPU (``--device cpu``, at a tiny
-preset or small dims), prints its per-variant times to stderr and one JSON
+One more, ``profile_split``, sweeps the decode kernels' key split at one
+head geometry, on the card only and without a JAX counterpart; it and
+``chip_smoke.py`` share one device timer (``_timing``).
+
+Each of the first three runs as ``python -m
+llmapigateway_tpu_torch.tools.<name>`` on the card (``--device cuda``, the
+default) or on the CPU (``--device cpu``, at a tiny preset or small dims),
+prints its per-variant times to stderr and one JSON
 object of results as its last line of standard output, and returns the
 results from ``main(argv)``. Times on the card are CUDA-event times around
 whole bursts, best of ``--reps`` after a warm-up call; on the CPU they are

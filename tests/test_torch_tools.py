@@ -4,8 +4,10 @@ engine_burst}.py, run end to end on the CPU at a tiny preset and small
 dims: every variant reports a time, the decode profiler's ``full`` step
 (through the kernels' attention function, as ``--kernels`` runs it) gives
 the engine's greedy tokens from the same state, and ``--quant`` is refused
-with the ROADMAP item that will bring it. Times on the CPU say nothing of
-the card; the tools run on the card in chip_smoke.py's tools phase."""
+with the ROADMAP item that will bring it. The decode kernels' split sweep
+and chip_smoke.py's tree A/B refuse a machine without a card. Times on the
+CPU say nothing of the card; the tools run on the card in chip_smoke.py's
+tools phase."""
 import json
 
 import numpy as np
@@ -19,7 +21,7 @@ from llmapigateway_tpu_torch.ops.flash_attention import (
     make_cache_attention_fn)
 from llmapigateway_tpu_torch.tools import (profile_decode,
                                            profile_engine_burst,
-                                           profile_insert)
+                                           profile_insert, profile_split)
 
 
 def _last_json(capsys):
@@ -62,6 +64,19 @@ def test_profile_decode_reports_every_variant(capsys):
                         "sort_alone"}
     assert all(ms > 0 for ms in res.values())
     assert _last_json(capsys)["ms_per_step"] == res
+
+
+def test_decode_kernel_tools_refuse_the_cpu(tmp_path, capsys):
+    """The split sweep and the smoke's tree A/B time CUDA kernels: without
+    a card they stop with a reason instead of timing a plain version."""
+    with pytest.raises(SystemExit, match="CUDA card"):
+        profile_split.main(["--device", "cpu"])
+    import chip_smoke
+    out = tmp_path / "ab.json"
+    assert chip_smoke.main(["--decode-ab", chip_smoke.HERE,
+                            "--out", str(out)]) != 0
+    assert "torch.cuda.is_available() is False" in capsys.readouterr().err
+    assert not out.exists()
 
 
 def test_profile_decode_refuses_weight_quantization():
