@@ -5,10 +5,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-or, to time the decode rows of several checkouts in turn with one timer
-(say a ``git archive`` of the parent, this one, this one, the parent)::
+or, to time the decode (or prefill) rows of several checkouts in turn with
+one timer (say a ``git archive`` of the parent, this one, this one, the
+parent)::
 
     python3 chip_smoke.py --decode-ab TREE [TREE ...] [--out FILE]
+    python3 chip_smoke.py --prefill-ab TREE [TREE ...] [--out FILE]
 
 Phases, each printed as JSON lines:
 
@@ -148,7 +150,8 @@ MODEL_REL_TOL = 5e-2
 # Kernel shapes, by model: the decode case and the prefill case. llama-3-8b
 # is the full-attention main path of PRs 1-2; mistral-7b and phi-3-mini the
 # window variants (their serve runs below); n_stale and starts sit around
-# the window and past it.
+# the window and past it. Prefill runs at a whole chunk (T 512) and a
+# ragged one (T 300, no multiple of the 64- or 32-row query tile).
 SHAPES = {
     "llama-3-8b": (
         dict(B=8, H=32, KV=8, Dh=128, page=256, NP=16, S=4096, window=0,
@@ -164,19 +167,19 @@ SHAPES = {
         dict(B=8, H=32, KV=32, Dh=96, page=256, NP=16, S=4096, window=2047,
              n_stale=[0, 1, 2046, 2047, 2048, 3000, 3500, 4095]),
         dict(H=32, KV=32, Dh=96, page=256, NP=16, S=4096, window=2047,
-             starts=[0, 2000, 3500], T=(512,))),
+             starts=[0, 2000, 3500], T=(512, 300))),
     # The head widths 64 (tinyllama, G 8) and 256 (gemma-2b, MQA: G 8 over
     # one KV head).
     "tinyllama-1.1b": (
         dict(B=8, H=32, KV=4, Dh=64, page=256, NP=8, S=2048, window=0,
              n_stale=[0, 1, 255, 256, 257, 1000, 1500, 2047]),
         dict(H=32, KV=4, Dh=64, page=256, NP=8, S=2048, window=0,
-             starts=[0, 256, 1000], T=(512,))),
+             starts=[0, 256, 1000], T=(512, 300))),
     "gemma-2b": (
         dict(B=8, H=8, KV=1, Dh=256, page=256, NP=16, S=4096, window=0,
              n_stale=[0, 1, 255, 256, 257, 1000, 2047, 4095]),
         dict(H=8, KV=1, Dh=256, page=256, NP=16, S=4096, window=0,
-             starts=[0, 256, 1000], T=(512,))),
+             starts=[0, 256, 1000], T=(512, 300))),
 }
 # Kernel #5 (the decode step's one-row KV insert): at the insert tool's
 # default shape (tinyllama-1.1b's cache, tools/profile_insert.py) and at
@@ -372,16 +375,22 @@ def nvidia_smi_line() -> str:
 def body_smem_bytes(head_dims) -> dict:
     """Each attention body's shared memory by its layout (ptxas does not
     report the dynamic shared memory of the bodies above 48 KiB). Prefill
-    (``Smem<R, HD>``, csrc/attention_common.cuh): R rows of HD/2 + 1 words
-    of queries and scores, a 32-key tile of K and V, the tile's int8 scales
-    and m/l/alpha per row, R = the query tile (32 at HD 256, else 64).
-    Decode (``SplitSmem<R, KVT>``, csrc/decode_split.cuh) at G 16: a ring of
-    2-4 stages of a raw K and V tile and its scales (aiming at 40 KiB), the
+    (``PrefillTiles<KVT>``, csrc/prefill_mma.cuh): a BQ-row query tile (64,
+    32 at HD 256) and KT-key K and V tiles (64, 32 at HD 256), rows of HD
+    bf16 padded by 16 bytes; bf16 keeps a 2-stage ring of K/V tiles, int8 a 2-stage ring of
+    raw tiles with their scales and one widened tile. Decode
+    (``SplitSmem<R, KVT>``, csrc/decode_split.cuh) at G 16: a ring of 2-4
+    stages of a raw K and V tile and its scales (aiming at 40 KiB), the
     warps' merge area over it, and per warp 8 probabilities and a rescale
     factor per row."""
-    def prefill(R, HD):
-        words = HD // 2 + 1
-        return 4 * (R * words + 2 * 32 * words + R * 33 + 2 * 32 + 3 * R)
+    from llmapigateway_tpu_torch.ops import _kernels
+
+    def prefill(HD, quant):
+        row = HD * 2 + 16
+        bq, kt = _kernels.prefill_rows(HD), _kernels.prefill_tile_keys(HD)
+        if not quant:
+            return bq * row + 2 * 2 * kt * row
+        return bq * row + 2 * kt * row + 2 * (2 * kt * HD + 2 * kt * 4)
 
     def decode(HD, elem):
         stage = 2 * 32 * HD * elem + 2 * 32 * 4
@@ -389,7 +398,8 @@ def body_smem_bytes(head_dims) -> dict:
         return stages * stage + 4 * 4 * (8 + 1) * 4   # 4 warps x 4 rows
     out = {}
     for HD in head_dims:
-        out[f"prefill Dh{HD}"] = prefill(32 if HD > 128 else 64, HD)
+        out[f"prefill Dh{HD} bf16"] = prefill(HD, False)
+        out[f"prefill Dh{HD} int8"] = prefill(HD, True)
         out[f"decode Dh{HD} G16 bf16"] = decode(HD, 2)
         out[f"decode Dh{HD} G16 int8"] = decode(HD, 1)
     return out
@@ -966,22 +976,34 @@ def check_insert(torch, gen, shape: str) -> dict:
     return res
 
 
+def prefill_rows(torch, ks, gen, smoke=None) -> list[dict]:
+    """The kernel phase's timed prefill rows: each shape's prefill case at
+    each of its chunk lengths (this file's ``SHAPES``) on both layouts and
+    KV types, then the multi-page bodies. ``smoke``: the chip_smoke module
+    whose checks and case inputs run (this one; the A/B passes each tree's
+    own, so every tree runs the same chunk lengths)."""
+    cs = smoke or sys.modules[__name__]
+    rows = []
+    for shape in SHAPES:
+        for layout in ("paged", "contiguous"):
+            for quant in (False, True):
+                for T in SHAPES[shape][1]["T"]:
+                    rows += cs.check_prefill(torch, ks, gen, layout, quant,
+                                             shape, T)
+    for shape in PPB_SHAPES:
+        for quant in (False, True):
+            rows += cs.check_prefill(torch, ks, gen, "paged", quant, shape,
+                                     SHAPES[shape][1]["T"][0], PPBS)
+    return rows
+
+
 def kernel_phase(torch, ks, gen) -> list[dict]:
     """Phase 3: every kernel body at the main path's shapes — full
     attention, both window shapes, the multi-page bodies; the decode rows
     first — then every group size and head width, then the decode bodies
     at their split edges. Returns the timed rows."""
     rows = decode_rows(torch, ks, gen)
-    for shape in SHAPES:
-        for layout in ("paged", "contiguous"):
-            for quant in (False, True):
-                for T in SHAPES[shape][1]["T"]:
-                    rows += check_prefill(torch, ks, gen, layout, quant,
-                                          shape, T)
-    for shape in PPB_SHAPES:
-        for quant in (False, True):
-            rows += check_prefill(torch, ks, gen, "paged", quant, shape,
-                                  SHAPES[shape][1]["T"][0], PPBS)
+    rows += prefill_rows(torch, ks, gen)
     from llmapigateway_tpu_torch.ops import _kernels
     check_groups(torch, ks, _kernels.GROUP_SIZES, _kernels.HEAD_DIMS, gen)
     check_split_edges(torch, ks, gen)
@@ -1531,14 +1553,14 @@ def kernels_line(kernel_rows: list[dict], serve: dict,
 
 
 # ---------------------------------------------------------------------------
-# --decode-ab: the decode rows of several checkouts, one timer for all
+# --decode-ab / --prefill-ab: one kind's rows of several checkouts, one timer
 # ---------------------------------------------------------------------------
 
 # Run in a fresh process per tree: the tree's own chip_smoke.py and package
-# first on the path; this checkout's timer and decode_rows loaded by path.
+# first on the path; this checkout's timer and row helpers loaded by path.
 _AB_RUN = r"""
 import importlib.util, json, sys
-tree, here = sys.argv[1:3]
+tree, here, kind = sys.argv[1:4]
 sys.path.insert(0, tree)
 import torch
 def load(name, path):
@@ -1560,47 +1582,56 @@ from llmapigateway_tpu_torch.ops import paged_attention as pa
 torch.backends.cuda.matmul.allow_tf32 = False
 _kernels.build()
 gen = torch.Generator(device="cuda").manual_seed(0)
-rows = this.decode_rows(torch, cs.Kernels(pa, fa), gen, cs)
-print("DECODE_AB " + json.dumps({
-    r["name"]: r["ms"] if isinstance(r["ms"], list)
+rows = getattr(this, kind + "_rows")(torch, cs.Kernels(pa, fa), gen, cs)
+print("AB_ROWS " + json.dumps({
+    this.ab_key(r): r["ms"] if isinstance(r["ms"], list)
     else [r["ms"], r["host_ms"]] for r in rows}))
 """
 
 
-def decode_ab(argv) -> int:
-    """Each tree's decode rows (:func:`decode_rows` over its own smoke's
-    cases, inputs and checks) in a fresh process, in the order given, all
-    timed by this checkout's timer: [device ms, host ms of one call] per
-    row and run and, for two distinct trees, each tree's median device and
-    host ms and the change / parent ratio of the device ms (first tree
-    first)."""
+def ab_key(row: dict) -> str:
+    """A timed row's name in an A/B report: its name, and a prefill row's
+    chunk length (one name covers T 512 and T 300)."""
+    T = row["shape"].get("T")
+    return row["name"] if T is None else f"{row['name']} T={T}"
+
+
+def run_ab(kind: str, argv) -> int:
+    """Each tree's ``kind`` rows (:func:`decode_rows` or
+    :func:`prefill_rows` over its own smoke's cases, inputs and checks; the
+    prefill chunk lengths are this checkout's) in a fresh process, in the order given, all timed by this checkout's
+    timer: [device ms, host ms of one call] per row and run and, for two
+    distinct trees, each tree's median device and host ms and the change /
+    parent ratio of the device ms (first tree first) on the rows both
+    trees have."""
     import argparse
-    ap = argparse.ArgumentParser(prog="chip_smoke.py --decode-ab")
+    ap = argparse.ArgumentParser(prog=f"chip_smoke.py --{kind}-ab")
     ap.add_argument("trees", nargs="+", help="tree roots, in run order")
     ap.add_argument("--out", help="also write the report here (JSON)")
     args = ap.parse_args(argv)
     runs = []
     for tree in args.trees:
         proc = subprocess.run(
-            [sys.executable, "-c", _AB_RUN, os.path.abspath(tree), HERE],
-            capture_output=True, text=True, cwd=os.path.abspath(tree))
+            [sys.executable, "-c", _AB_RUN, os.path.abspath(tree), HERE,
+             kind], capture_output=True, text=True, cwd=os.path.abspath(tree))
         lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith("DECODE_AB ")]
+                 if ln.startswith("AB_ROWS ")]
         if proc.returncode != 0 or not lines:
-            print(f"chip_smoke --decode-ab: {tree} failed "
+            print(f"chip_smoke --{kind}-ab: {tree} failed "
                   f"({proc.returncode}):\n{proc.stderr[-4000:]}",
                   file=sys.stderr)
             return 1
-        runs.append((tree, json.loads(lines[-1][len("DECODE_AB "):])))
-    report = {"runs": [{"tree": t, "ms": ms} for t, ms in runs]}
+        runs.append((tree, json.loads(lines[-1][len("AB_ROWS "):])))
+    report = {"kind": kind, "runs": [{"tree": t, "ms": ms} for t, ms in runs]}
     trees = list(dict.fromkeys(args.trees))
     if len(trees) == 2:
+        names = [n for n in runs[0][1] if all(n in ms for _, ms in runs)]
         med = {t: {n: [statistics.median(ms[n][i] for tt, ms in runs
                                          if tt == t) for i in (0, 1)]
-                   for n in runs[0][1]} for t in trees}
+                   for n in names} for t in trees}
         report["median_ms"] = med
         report["ratio"] = {n: med[trees[1]][n][0] / med[trees[0]][n][0]
-                           for n in med[trees[0]]}
+                           for n in names}
     text = json.dumps(report, indent=1)
     if args.out:
         with open(args.out, "w") as f:
@@ -1619,8 +1650,8 @@ def main(argv=()) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA card", file=sys.stderr)
         return 2
-    if argv[:1] == ["--decode-ab"]:
-        return decode_ab(argv[1:])
+    if argv[:1] in (["--decode-ab"], ["--prefill-ab"]):
+        return run_ab(argv[0][2:-3], argv[1:])
     sys.path.insert(0, HERE)
     try:
         from llmapigateway_tpu_torch.ops import _kernels

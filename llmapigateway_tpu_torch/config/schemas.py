@@ -8,9 +8,15 @@ package's ``config/schemas.py`` with the same fields and defaults, so a
 
     { "local_gpu": { "type": "local", "engine": { "preset": ..., ... } } }
 
-The PyTorch engine refuses, at build, the knobs it has not ported yet
-(engine/engine.py ``_refuse_unported``); the schema still accepts them so a
-file written for either package validates against both.
+The schema accepts every knob of the JAX package, so a file written for
+either package validates against both. What the port has not ported yet is
+refused where it would mean something here: engine knobs at engine build
+(engine/engine.py ``_refuse_unported``), provider and rule knobs at config
+load (config/loader.py ``refuse_unported``), each with a :class:`NotPorted`
+error naming its ROADMAP item. A knob the JAX package itself treats as inert
+for the configuration stays accepted, and so do the engine knobs that mean
+nothing off the TPU (``compilation_cache_dir``, ``debug_nans``,
+``prewarm_sampler_variants``, ``profile_annotations``).
 """
 from __future__ import annotations
 
@@ -21,6 +27,16 @@ from pydantic import BaseModel, ConfigDict, Field, field_validator
 
 class ConfigError(Exception):
     """Raised on invalid configuration; callers decide whether to exit."""
+
+
+class NotPorted(ConfigError, ValueError):
+    """A knob set to a value whose feature the port does not have yet."""
+
+
+def not_ported(knob: str, item: str) -> NotPorted:
+    """The refusal of ``knob``, naming its ROADMAP.md Queue 1 ``item``."""
+    return NotPorted(f"{knob} is not ported to the PyTorch engine yet "
+                     f"(ROADMAP.md, port queue: {item})")
 
 
 class DisaggregationConfig(BaseModel):
@@ -42,8 +58,9 @@ class DisaggregationConfig(BaseModel):
 
 
 class SupervisorConfig(BaseModel):
-    """Engine supervision knobs (watchdog, restart budget, drain). Accepted
-    and inert in the PyTorch engine until supervision is ported."""
+    """Engine supervision knobs (watchdog, restart budget, drain). The
+    PyTorch engine refuses any value but these defaults until supervision
+    is ported."""
     model_config = ConfigDict(extra="forbid")
 
     watchdog_ms: float = Field(default=0.0, ge=0.0)
@@ -80,6 +97,8 @@ class LocalEngineConfig(BaseModel):
     decode_burst: int = 8           # chained decode steps per host sync
     # Burst depth while new work is waiting (prefill interleave).
     decode_burst_busy: int = 4
+    # Burst-depth cap from a TTFT target (refused when set: it belongs to the
+    # compiled, pipelined decode step).
     ttft_target_ms: float = 0.0
     max_tokens_default: int = 1024
     spec_draft_len: int = 0
@@ -92,6 +111,8 @@ class LocalEngineConfig(BaseModel):
     attention: str = "auto"         # "auto" | "pallas" | "reference"
     seq_attention: str = "ring"     # "ring" | "ulysses"
     tokenizer_path: str | None = None
+    # XLA's compilation cache, NaN checks, sampler prewarming and profiler
+    # annotations: no meaning off the TPU, accepted and inert here.
     compilation_cache_dir: str = ""
     prewarm_sampler_variants: bool = True
     debug_nans: bool = False
@@ -104,8 +125,8 @@ class LocalEngineConfig(BaseModel):
 
 
 class BreakerSettings(BaseModel):
-    """Per-provider circuit-breaker knobs (accepted; breakers are not
-    ported yet)."""
+    """Per-provider circuit-breaker knobs. Breakers are not ported yet: an
+    enabled breaker on a local provider is refused at config load."""
     model_config = ConfigDict(extra="forbid")
 
     enabled: bool = True

@@ -1,6 +1,6 @@
 // Flash attention kernels over the contiguous head-major KV cache for Hopper
-// (sm_90a), fp32 math, over a bf16 cache or an int8 cache with per-key fp32
-// scales.
+// (sm_90a), fp32 softmax and sums, over a bf16 cache or an int8 cache with
+// per-key fp32 scales.
 //
 // flash_decode_kernel replaces the Pallas TPU kernel flash_decode_attention /
 // _decode_kernel (llmapigateway_tpu/ops/flash_attention.py:186, :147): one
@@ -21,24 +21,27 @@
 // cache row (the chunk's own keys already inserted, read back quantized under
 // int8).
 //   Bound: operations at chunk sizes. Design: the paged prefill kernel's
-//   (block per 64-query tile, head, slot; 32-key tiles up to the tile's
-//   causal bound; fp32 FMA), over the cache row; with a window, from the
-//   floor of the tile's first query (:300-317). Positions past the cache
-//   extent S hold no keys: a query there sees all S keys and is the caller's
-//   pad.
+//   body (prefill_mma.cuh: mma.sync tiles, a cp.async ring of 64-key tiles,
+//   register softmax, P·V with P as a bf16 hi + lo pair, heaviest query
+//   tiles first) over the cache row; with a window, from the 64-key tile
+//   holding the floor of the tile's first query (:300-317). Positions past
+//   the cache extent S hold no keys: a query there sees all S keys and is
+//   the caller's pad.
 //
 // Both kernels take an optional row map `rows` [B] (nullptr: row b): query
 // row b reads cache row rows[b], so the engine's prefill of K slots works on
-// the [B_slots, ...] cache in place. Both are the shared bodies of
-// attention_common.cuh over DenseRows, in a bf16 and an int8 instantiation
-// for each head width (64, 96, 128, 256) and, for decode, each row count
-// (1, 2, 4, 8, 16: groups 1, 2, 3, 4, 7, 8, 16 rounded up, the group itself
-// a runtime argument); the Dh 256 prefill body's and the Dh 256 bf16 decode
-// body's shared memory is dynamic (past the 48 KiB static limit).
+// the [B_slots, ...] cache in place. Both are the shared bodies
+// (decode_split.cuh, prefill_mma.cuh) over DenseRows, in a bf16 and an int8
+// instantiation for each head width (64, 96, 128, 256) and, for decode, each
+// row count (1, 2, 4, 8, 16: groups 1, 2, 3, 4, 7, 8, 16 rounded up, the
+// group itself a runtime argument); the prefill bodies at Dh 96/128/256 and
+// the Dh 256 bf16 decode bodies take dynamic shared memory (past the 48 KiB
+// static limit).
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError().
 #include "attention_common.cuh"
 #include "decode_split.cuh"
+#include "prefill_mma.cuh"
 
 using namespace pa;
 
@@ -76,13 +79,14 @@ __global__ void __launch_bounds__(NTHREADS) flash_prefill_kernel(
         const typename KVT::elem* __restrict__ v,
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales, const int* __restrict__ row_map,
-        const int* __restrict__ start, bf16* __restrict__ out, int T, int H,
-        int KV, int S, float scale, int window) {
-    constexpr int HD = KVT::kHD, TILE_Q = Dims<HD>::TILE_Q;
-    auto& sm = body_smem<PrefillSmem<KVT>>();
-    const int t0 = blockIdx.x * TILE_Q, h = blockIdx.y, b = blockIdx.z;
+        const int* __restrict__ start, bf16* __restrict__ out, int B, int T,
+        int H, int KV, int S, float scale, int window) {
+    constexpr int HD = KVT::kHD, BQ = PrefillGeo<KVT>::BQ;
+    auto& sm = body_smem<PrefillTiles<KVT>>();
+    const PrefillBlock blk = prefill_block((T + BQ - 1) / BQ, H, B);
+    const int t0 = blk.tile * BQ, h = blk.h, b = blk.b;
     const int kv = h / (H / KV);
-    const int rows_in_tile = min(TILE_Q, T - t0);   // ragged last tile
+    const int rows_in_tile = min(BQ, T - t0);       // ragged last tile
     const long long stride = (long long)H * HD;
     const long long q0 = ((long long)b * T + t0) * stride
                          + (long long)h * HD;
@@ -90,9 +94,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_prefill_kernel(
     const int n_keys = min(first_q + rows_in_tile, S);
     const long long row = row_map ? row_map[b] : b;
     const DenseRows rows{(row * KV + kv) * S, S};
-    prefill_body<KVT>(sm, q + q0, stride, rows_in_tile, first_q, n_keys,
-                      window, k, v, k_scales, v_scales, rows, scale,
-                      out + q0);
+    prefill_mma_body<KVT>(sm, q + q0, stride, rows_in_tile, first_q, n_keys,
+                          window, k, v, k_scales, v_scales, rows, scale,
+                          out + q0);
 }
 
 // The partial pass over grid (KV, B, n_split), then (n_split > 1) the
@@ -133,14 +137,14 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            int B, int T, int H, int KV, int S, float scale,
                            int window, cudaStream_t stream) {
     using E = typename KVT::elem;
-    constexpr int TILE_Q = Dims<KVT::kHD>::TILE_Q;
-    const dim3 grid((T + TILE_Q - 1) / TILE_Q, H, B);
-    return launch_with_smem<PrefillSmem<KVT>>(
+    constexpr int BQ = PrefillGeo<KVT>::BQ;
+    const dim3 grid((T + BQ - 1) / BQ * H * B);
+    return launch_with_smem<PrefillTiles<KVT>>(
         flash_prefill_kernel<KVT>, grid, stream, static_cast<const bf16*>(q),
         static_cast<const E*>(k), static_cast<const E*>(v),
         static_cast<const float*>(ks), static_cast<const float*>(vs),
         static_cast<const int*>(row_map), static_cast<const int*>(start),
-        static_cast<bf16*>(out), T, H, KV, S, scale, window);
+        static_cast<bf16*>(out), B, T, H, KV, S, scale, window);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// Paged attention kernels for Hopper (sm_90a), fp32 math, over a bf16 pool
-// or an int8 pool with per-key fp32 scales.
+// Paged attention kernels for Hopper (sm_90a), fp32 softmax and sums, over a
+// bf16 pool or an int8 pool with per-key fp32 scales.
 //
 // paged_decode_kernel replaces the Pallas TPU kernel paged_decode_attention /
 // _paged_decode_kernel (llmapigateway_tpu/ops/paged_attention.py:272, :204):
@@ -23,25 +23,28 @@
 // _paged_prefill_kernel (:438, :384): a chunk of T queries at positions
 // start + t, causal over the pool (the chunk's own keys already inserted,
 // and read back quantized under int8).
-//   Bound: operations at chunk sizes (2 * T * keys * Dh * 2 flops per head
-//   against one pass over K/V). Design: one block per (64-query tile, head,
-//   slot), keys in 32-key shared-memory tiles up to the tile's causal bound,
-//   per-element causal mask, fp32 FMA (no tensor cores yet: mma/wgmma, TMA
-//   and split-K are later work). The ragged last query tile is masked in the
-//   kernel, so T needs no padding. The same window and multi-page variants
-//   as decode: a window walks keys from the floor of the tile's first query
-//   (page live iff (lp + 1) * page - 1 > first_q - window, :404-426).
+//   Bound: operations at chunk sizes (4 * T * keys * Dh flops per head
+//   against one pass over K/V). Design (prefill_mma.cuh): tensor-core tiles
+//   (mma.sync m16n8k16, fp32 accumulate), 64-key K/V tiles streamed through
+//   a 2-stage cp.async ring, the online softmax in registers, P·V with P as
+//   a bf16 hi + lo pair, the mask only on the tiles that need it, and a 1-D
+//   grid that starts the query tiles with the most keys first. The ragged
+//   last query tile is masked in the kernel, so T needs no padding. The same
+//   window and multi-page variants as decode: a window walks keys from the
+//   64-key tile holding the floor of the tile's first query (page live iff
+//   (lp + 1) * page - 1 > first_q - window, :404-426).
 //
 // Both run over PagedRows (ppb 1) or PagedRunRows (ppb > 1), in a bf16 and
 // an int8 instantiation for each head width (64, 96, 128, 256) and, for
 // decode, each row count (1, 2, 4, 8, 16: groups 1, 2, 3, 4, 7, 8, 16
 // rounded up, the group itself a runtime argument); the window is a runtime
-// argument. The Dh 256 prefill body's and the Dh 256 bf16 decode body's
-// shared memory is dynamic (past the 48 KiB static limit).
+// argument. The prefill bodies at Dh 96/128/256 and the Dh 256 bf16 decode
+// bodies take dynamic shared memory (past the 48 KiB static limit).
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError().
 #include "attention_common.cuh"
 #include "decode_split.cuh"
+#include "prefill_mma.cuh"
 
 using namespace pa;
 
@@ -86,13 +89,14 @@ __global__ void __launch_bounds__(NTHREADS) paged_prefill_kernel(
         const float* __restrict__ k_scales,
         const float* __restrict__ v_scales,
         const int* __restrict__ page_table, const int* __restrict__ start,
-        bf16* __restrict__ out, int T, int H, int KV, int page, int NP,
+        bf16* __restrict__ out, int B, int T, int H, int KV, int page, int NP,
         float scale, int window, int ppb) {
-    constexpr int HD = KVT::kHD, TILE_Q = Dims<HD>::TILE_Q;
-    auto& sm = body_smem<PrefillSmem<KVT>>();
-    const int t0 = blockIdx.x * TILE_Q, h = blockIdx.y, b = blockIdx.z;
+    constexpr int HD = KVT::kHD, BQ = PrefillGeo<KVT>::BQ;
+    auto& sm = body_smem<PrefillTiles<KVT>>();
+    const PrefillBlock blk = prefill_block((T + BQ - 1) / BQ, H, B);
+    const int t0 = blk.tile * BQ, h = blk.h, b = blk.b;
     const int kv = h / (H / KV);
-    const int rows_in_tile = min(TILE_Q, T - t0);   // ragged last tile
+    const int rows_in_tile = min(BQ, T - t0);       // ragged last tile
     // q and out are [B, T, H, Dh]: consecutive positions H*Dh apart.
     const long long stride = (long long)H * HD;
     const long long row0 = ((long long)b * T + t0) * stride
@@ -101,9 +105,9 @@ __global__ void __launch_bounds__(NTHREADS) paged_prefill_kernel(
     const int n_keys = min(first_q + rows_in_tile, NP * page);
     const Rows rows = Rows::make(page_table + (long long)b * NP, NP, page,
                                  KV, kv, ppb);
-    prefill_body<KVT>(sm, q + row0, stride, rows_in_tile, first_q, n_keys,
-                      window, k_pages, v_pages, k_scales, v_scales, rows,
-                      scale, out + row0);
+    prefill_mma_body<KVT>(sm, q + row0, stride, rows_in_tile, first_q,
+                          n_keys, window, k_pages, v_pages, k_scales,
+                          v_scales, rows, scale, out + row0);
 }
 
 // The partial pass over grid (KV, B, n_split), then (n_split > 1) the
@@ -147,14 +151,14 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            int NP, float scale, int window, int ppb,
                            cudaStream_t stream) {
     using E = typename KVT::elem;
-    constexpr int TILE_Q = Dims<KVT::kHD>::TILE_Q;
-    const dim3 grid((T + TILE_Q - 1) / TILE_Q, H, B);
-    return launch_with_smem<PrefillSmem<KVT>>(
+    constexpr int BQ = PrefillGeo<KVT>::BQ;
+    const dim3 grid((T + BQ - 1) / BQ * H * B);
+    return launch_with_smem<PrefillTiles<KVT>>(
         paged_prefill_kernel<KVT, Rows>, grid, stream,
         static_cast<const bf16*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(page_table),
-        static_cast<const int*>(start), static_cast<bf16*>(out), T, H, KV,
+        static_cast<const int*>(start), static_cast<bf16*>(out), B, T, H, KV,
         page, NP, scale, window, ppb);
 }
 

@@ -63,7 +63,7 @@ from typing import AsyncIterator
 import numpy as np
 import torch
 
-from ..config.schemas import LocalEngineConfig
+from ..config.schemas import LocalEngineConfig, SupervisorConfig, not_ported
 from ..models import forward_fn, init_fn
 from ..models.config import ModelConfig, get_preset
 from ..models.llama import KVCache, forward_hidden, head_logits
@@ -142,11 +142,6 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-def _not_ported(knob: str, item: str) -> ValueError:
-    return ValueError(f"{knob} is not ported to the PyTorch engine yet "
-                      f"(ROADMAP.md, port queue: {item})")
-
-
 def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
     """Reject every knob whose JAX feature the port does not have yet, so a
     providers.json never silently means something else here."""
@@ -166,17 +161,22 @@ def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
     # refused here.
     if (cfg.kv_layout == "paged" and cfg.prefix_cache
             and not model_cfg.sliding_window):
-        raise _not_ported("prefix_cache=true", "prefix cache")
+        raise not_ported("prefix_cache=true", "prefix cache")
     if cfg.spec_draft_len:
-        raise _not_ported("spec_draft_len", "speculative decoding")
+        raise not_ported("spec_draft_len", "speculative decoding")
     if cfg.quant:
-        raise _not_ported(f"quant={cfg.quant!r}", "weight quantization")
+        raise not_ported(f"quant={cfg.quant!r}", "weight quantization")
     if model_cfg.is_moe:
-        raise _not_ported("an MoE model", "MoE")
+        raise not_ported("an MoE model", "MoE")
     if any(size != 1 for size in cfg.mesh.values()):
-        raise _not_ported(f"mesh={cfg.mesh}", "parallelism")
+        raise not_ported(f"mesh={cfg.mesh}", "parallelism")
     if cfg.disaggregation.enabled:
-        raise _not_ported("disaggregation", "disaggregation")
+        raise not_ported("disaggregation", "disaggregation")
+    if cfg.ttft_target_ms > 0:
+        raise not_ported("ttft_target_ms", "compiled, pipelined decode step")
+    if cfg.supervisor != SupervisorConfig():
+        raise not_ported("supervisor", "disaggregation, supervision, "
+                                        "observability")
     if cfg.attention not in ("auto", "pallas"):
         raise ValueError(
             f"attention={cfg.attention!r}: the PyTorch engine always runs "
@@ -209,7 +209,7 @@ class InferenceEngine:
                  device: str | torch.device = "cuda"):
         self.cfg = engine_cfg
         if engine_cfg.model_path:
-            raise _not_ported("model_path (checkpoint loading)", "checkpoints")
+            raise not_ported("model_path (checkpoint loading)", "checkpoints")
         if not engine_cfg.preset:
             raise ValueError("local engine needs 'preset'")
         model_cfg = get_preset(engine_cfg.preset)

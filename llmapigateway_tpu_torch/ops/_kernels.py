@@ -38,7 +38,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("paged_attention", "flash_attention", "kv_insert")  # csrc/<name>.cu
-HEADERS = ("attention_common.cuh", "decode_split.cuh")
+HEADERS = ("attention_common.cuh", "decode_split.cuh", "prefill_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +50,31 @@ SM_COUNT = 132              # streaming multiprocessors of an H100 SXM: the
 TARGET_WAVES = 16           # blocks aimed at: this many per SM
 MIN_SPLIT_TILES = 4         # below this the ring has nothing to overlap
 MAX_SPLITS = 64             # csrc/decode_split.cuh MAX_SPLITS
+
+# The prefill body (csrc/prefill_mma.cuh): query rows a block owns and keys
+# a tile; these mirror its PrefillGeo.
+
+def prefill_rows(head_dim: int) -> int:
+    """Query rows one prefill block owns: 64, or 32 at head widths past
+    128 (csrc/prefill_mma.cuh PrefillGeo::BQ)."""
+    return 32 if head_dim > 128 else 64
+
+
+def prefill_tile_keys(head_dim: int) -> int:
+    """Keys a prefill tile holds: 64, or 32 at head widths past 128
+    (PrefillGeo::KT)."""
+    return 32 if head_dim > 128 else 64
+
+
+def prefill_block_order(n_tiles: int, H: int, B: int) -> list[tuple]:
+    """The (query tile, head, slot) each block of a prefill launch's 1-D
+    grid takes, in launch order (csrc/prefill_mma.cuh prefill_block): the
+    last query tile of every (head, slot) first — it walks the most keys
+    under causal masking — then the tile before it, and so on."""
+    per = H * B
+    return [(n_tiles - 1 - L // per, L % H, (L % per) // H)
+            for L in range(n_tiles * per)]
+
 
 _build_lock = threading.Lock()
 

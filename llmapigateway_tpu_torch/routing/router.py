@@ -12,11 +12,13 @@ package's ``routing/router.py``).
   (429 when every failure was engine overload).
 
 Providers are the port's local engines. Rotation, circuit breakers,
-deadlines, the usage DB and remote HTTP providers are not ported yet: a
-``remote_http`` target is reported unavailable and the chain moves on, and
-the rule fields for the others (``rotate_models``, ``timeout_ms``,
-``slo_*``, ``providers_order``, ``custom_headers``) are accepted but not
-applied.
+deadlines, SLO targets, the usage DB and remote HTTP providers are not
+ported yet: a ``remote_http`` target is reported unavailable and the chain
+moves on, and a rule that would use one of the others on a local target
+(``rotate_models`` over several targets, ``timeout_ms``, ``slo_*``,
+``use_provider_order_as_fallback``) is refused at config load
+(config/loader.py ``refuse_unported``). ``providers_order`` and
+``custom_headers`` are inert for a local target, in the JAX router too.
 """
 from __future__ import annotations
 

@@ -79,6 +79,17 @@ def test_decode_kernel_tools_refuse_the_cpu(tmp_path, capsys):
     assert not out.exists()
 
 
+def test_prefill_ab_refuses_the_cpu(tmp_path, capsys):
+    """The prefill A/B times the prefill kernels of each tree: without a
+    card it stops with a reason and writes no report."""
+    import chip_smoke
+    out = tmp_path / "ab.json"
+    assert chip_smoke.main(["--prefill-ab", chip_smoke.HERE, chip_smoke.HERE,
+                            "--out", str(out)]) != 0
+    assert "torch.cuda.is_available() is False" in capsys.readouterr().err
+    assert not out.exists()
+
+
 def test_profile_decode_refuses_weight_quantization():
     with pytest.raises(ValueError, match="ROADMAP.md.*weight quantization"):
         profile_decode.main(["--device", "cpu", "--preset", "tiny-test",
