@@ -89,7 +89,25 @@ Phases, each printed as JSON lines:
              rotates in prefill and in decode, no slot ever holds more than
              the ring, and every page comes back. Pairs of runs that read
              the same values in the same order must stream the same text.
-7. the ``kernels`` line (decode rows with the key split ``n_split`` and
+7. prefix  — the prefix cache at llama-3-8b full width (paged, page 256,
+             chunk 512, prefix_cache at its default; bf16, int8, and bf16
+             with two-page blocks): one cold request and four warm ones,
+             one at a time, sharing a 2048-token system prompt, over HTTP.
+             Each warm request must be served 2048 cached tokens
+             (``usage.prompt_tokens_details``) and run one prefill call
+             (the cold one runs 5), and stream the text the same prompt
+             streams on an engine with prefix_cache false; launch counts
+             as in the serve phase; after the run the allocator's
+             refcounts and the tree agree and every page is free or
+             resident. Then five distinct system prompts through a pool
+             that must evict for the fifth. Cold and warm TTFT are
+             information only. Kernels #1 and #2 over aliased page tables
+             (the cache's shared blocks) are held in the kernel phase.
+8. bench   — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
+             32 steps, 3 TTFT probes and its shared-prefix rung: its JSON
+             line, a positive value, and warm requests that ran fewer
+             prefill calls than the cold one.
+9. the ``kernels`` line (decode rows with the key split ``n_split`` and
    workspace bytes of their timed launch), the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
@@ -338,6 +356,40 @@ SAME_TEXT = [("mistral-contiguous-bf16", "mistral-paged-bf16-ring"),
              ("mistral-contiguous-int8", "mistral-paged-int8-ring"),
              ("phi3-contiguous-bf16", "phi3-paged-bf16-ring"),
              ("mistral-paged-int8-ppb2", "mistral-paged-int8-ppb4")]
+# The prefix cache at llama-3-8b full width, paged, page 256, chunk 512,
+# prefix_cache at its default (the first run is LocalEngineConfig's
+# defaults but for preset and layout): one cold request, then PREFIX_WARM
+# warm ones, one at a time, each with the same system prompt — its shared
+# tokens a little past PREFIX_TOKENS, a multiple of the chunk, the page and
+# the two-page block, so every warm request is served PREFIX_TOKENS from
+# the cache and prefills its ~150-token tail in one call — and a distinct
+# ~100-character question. Each warm text must equal the same prompt's on
+# an engine built the same with prefix_cache false.
+PREFIX_TOKENS = 2048
+PREFIX_SHARED_EXTRA = 40        # shared tokens past PREFIX_TOKENS
+PREFIX_WARM = 4
+PREFIX_MAX_TOKENS = 16
+PREFIX_LLAMA = {"preset": "llama-3-8b", "kv_layout": "paged"}
+PREFIX_RUNS = [("llama-prefix-bf16", PREFIX_LLAMA),
+               ("llama-prefix-int8", {**PREFIX_LLAMA, "kv_quant": "int8"}),
+               ("llama-prefix-bf16-ppb2", {**PREFIX_LLAMA,
+                                           "kv_pages_per_block": 2})]
+# The eviction run: five distinct system prompts, one request each, on a
+# pool that holds four requests' indexed blocks and one free page less than
+# a reservation, so the fifth admission must evict.
+EVICT_PROMPTS = 5
+# Aliased page tables, as the prefix cache maps them: the rows' first
+# `shared_pages` pages are slot 0's (a shared 2048-token prompt), the rest
+# private. Decode over slots past the shared span, one empty, one a token
+# past it; prefill chunks that start at the span's end (a warm request's
+# first chunk) and one a page later. llama-3-8b heads.
+ALIASED = dict(H=32, KV=8, Dh=128, page=256, NP=16, shared_pages=8,
+               n_stale=[2148, 2055, 2348, 2303, 4000, 2100, 0, 2049],
+               starts=[2048, 2048, 2048, 2304], T=512)
+# The bench phase: the port's bench tool on the card at a short setting.
+BENCH_ARGS = ["--preset", "tinyllama-1.1b", "--steps", "32",
+              "--ttft-probes", "3", "--eight-b", "0", "--swa", "0",
+              "--long-ctx", "0", "--second-preset", ""]
 FREED_BYTES_MAX = 2 ** 30
 SOURCES = {"paged": "paged_attention.cu", "contiguous": "flash_attention.cu"}
 REPLACES = {
@@ -976,6 +1028,67 @@ def check_insert(torch, gen, shape: str) -> dict:
     return res
 
 
+def check_aliased(torch, ks, gen) -> list[dict]:
+    """Kernels #1 and #2 over page tables whose rows alias the same
+    physical pages (``ALIASED``: the prefix cache's shared blocks), bf16
+    and int8, per-page and two-page blocks, each held to its plain version
+    on the same inputs under the kernel tolerance, and timed."""
+    c = ALIASED
+    H, KV, Dh, page, shared = c["H"], c["KV"], c["Dh"], c["page"], \
+        c["shared_pages"]
+
+    def pool(live, quant, ppb):
+        k, v, table = _pool_and_table(torch, gen, len(live), KV, Dh, page,
+                                      c["NP"], live, quant,
+                                      packed=ppb if ppb > 1 else 0)
+        for b, n in enumerate(live):
+            m = min(n, shared)
+            table[b, :m] = table[0, :m]
+        aliased = int((table[1:, :shared] == table[0, :shared]).all(1)
+                      .sum().item())
+        return k, v, table, aliased
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    rows = []
+    for quant in (False, True):
+        for ppb in (1, 2):
+            B = len(c["n_stale"])
+            k, v, table, d_alias = pool([-(-n // page) for n in c["n_stale"]],
+                                        quant, ppb)
+            dargs = (rnd(B, H, Dh), rnd(B, KV, Dh), rnd(B, KV, Dh), k, v,
+                     table, torch.tensor(c["n_stale"], dtype=torch.int32,
+                                         device="cuda"))
+            starts = c["starts"]
+            k, v, table, p_alias = pool(
+                [-(-(s0 + c["T"]) // page) for s0 in starts], quant, ppb)
+            pargs = (rnd(len(starts), c["T"], H, Dh), k, v, table,
+                     torch.tensor(starts, dtype=torch.int32, device="cuda"))
+            for kind, args, n_alias in (("decode", dargs, d_alias),
+                                        ("prefill", pargs, p_alias)):
+                name = (f"{ks.name(kind, 'paged')}{'_int8' if quant else ''}"
+                        f"{f'_ppb{ppb}' if ppb > 1 else ''}[aliased]")
+                got = ks.call(kind, "paged", args, 0, ppb)
+                ref = ks.call_plain(kind, "paged", _fp32(args), 0)
+                torch.cuda.synchronize()
+                rows.append({"name": name, "kv": "int8" if quant else "bf16",
+                             "pages_per_block": ppb,
+                             "rows_aliasing_slot0": n_alias,
+                             **held(torch, name, got, ref),
+                             "ms": cuda_ms(torch, lambda: ks.call(
+                                 kind, "paged", args, 0, ppb))})
+    emit({"phase": "aliased", "shape": c, "rtol": KERNEL_RTOL,
+          "atol": KERNEL_ATOL, "rows": rows})
+    for r in rows:
+        check(r["rows_aliasing_slot0"] >= 2,
+              f"{r['name']}: the table aliases too few rows: {r}")
+        check(r["max_err_over_tol"] <= 1.0,
+              f"{r['name']} disagrees over an aliased table: {r}")
+    return rows
+
+
 def prefill_rows(torch, ks, gen, smoke=None) -> list[dict]:
     """The kernel phase's timed prefill rows: each shape's prefill case at
     each of its chunk lengths (this file's ``SHAPES``) on both layouts and
@@ -1001,12 +1114,14 @@ def kernel_phase(torch, ks, gen) -> list[dict]:
     """Phase 3: every kernel body at the main path's shapes — full
     attention, both window shapes, the multi-page bodies; the decode rows
     first — then every group size and head width, then the decode bodies
-    at their split edges. Returns the timed rows."""
+    at their split edges, then #1 and #2 over aliased page tables. Returns
+    the timed rows."""
     rows = decode_rows(torch, ks, gen)
     rows += prefill_rows(torch, ks, gen)
     from llmapigateway_tpu_torch.ops import _kernels
     check_groups(torch, ks, _kernels.GROUP_SIZES, _kernels.HEAD_DIMS, gen)
     check_split_edges(torch, ks, gen)
+    check_aliased(torch, ks, gen)
     return rows
 
 
@@ -1211,6 +1326,87 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+class _Gateway:
+    """The port's app on a local port with one local provider per entry of
+    ``engines`` (name → engine config) and a rule ``gw/<name>`` for each;
+    ``provider(name)`` builds and returns its provider."""
+
+    def __init__(self, engines: dict):
+        self.engines = engines
+
+    async def __aenter__(self):
+        from aiohttp import web
+
+        from llmapigateway_tpu_torch.config.loader import ConfigLoader
+        from llmapigateway_tpu_torch.config.settings import Settings
+        from llmapigateway_tpu_torch.providers.local import (
+            make_local_provider)
+        from llmapigateway_tpu_torch.server.app import build_app
+        self._dir = tempfile.TemporaryDirectory()
+        d = self._dir.name
+        with open(os.path.join(d, "providers.json"), "w") as f:
+            json.dump([{name: {"type": "local", "engine": cfg}}
+                       for name, cfg in self.engines.items()], f)
+        with open(os.path.join(d, "models_fallback_rules.json"), "w") as f:
+            json.dump([{"gateway_model_name": f"gw/{name}",
+                        "fallback_models": [{"provider": name,
+                                             "model": cfg["preset"]}]}
+                       for name, cfg in self.engines.items()], f)
+        first = next(iter(self.engines))
+        self.app = build_app(
+            Settings(fallback_provider=first, config_dir=d),
+            loader=ConfigLoader(d, first),
+            local_factory=functools.partial(make_local_provider,
+                                            device="cuda"))
+        self.runner = web.AppRunner(self.app)
+        await self.runner.setup()
+        self.port = _free_port()
+        await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
+        return self
+
+    async def provider(self, name: str):
+        provider = await self.app["gateway"].registry.get(name)
+        check(provider is not None, f"provider {name} did not build")
+        return provider
+
+    async def __aexit__(self, *exc):
+        await self.runner.cleanup()
+        self._dir.cleanup()
+        self.app = self.runner = None
+
+
+async def _chat(session, port: int, what: str, body: dict) -> dict:
+    """POST one chat completion (JSON, or SSE when ``body["stream"]``);
+    its usage block, text and finish reason."""
+    async with session.post(f"http://127.0.0.1:{port}/v1/chat/completions",
+                            json=body) as resp:
+        if resp.status != 200:
+            raise SmokeFailure(f"{what}: HTTP {resp.status}: "
+                               f"{await resp.text()}")
+        if not body["stream"]:
+            out = await resp.json()
+            return {"usage": out["usage"],
+                    "text": out["choices"][0]["message"]["content"],
+                    "finish": out["choices"][0]["finish_reason"]}
+        from llmapigateway_tpu_torch.utils.sse import SSEParser
+        parser, frames = SSEParser(), []
+        async for chunk in resp.content.iter_any():
+            frames.extend(parser.feed(chunk))
+        check(bool(frames) and frames[-1].is_done,
+              f"{what}: SSE stream did not end in [DONE]: "
+              f"{[fr.data[:200] for fr in frames[-2:]]}")
+        usage = [fr.json["usage"] for fr in frames
+                 if fr.json and "usage" in fr.json]
+        choices = [fr.json["choices"][0] for fr in frames
+                   if fr.json and fr.json.get("choices")]
+        text = "".join(c["delta"].get("content") or "" for c in choices)
+        finish = [c["finish_reason"] for c in choices
+                  if c.get("finish_reason")]
+        check(len(usage) == 1, f"{what}: SSE usage frame missing")
+        return {"usage": usage[0], "text": text,
+                "finish": finish[-1] if finish else None}
+
+
 def _gate_first_step(engine, n_requests: int) -> None:
     """Hold the engine's first scheduler step until all ``n_requests`` are
     queued (30 s at most), so every run admits the same requests in one
@@ -1263,131 +1459,75 @@ def _watch_ring(engine) -> dict:
 async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
                  prompt_spec) -> dict:
     import aiohttp
-    from aiohttp import web
 
-    from llmapigateway_tpu_torch.config.loader import ConfigLoader
-    from llmapigateway_tpu_torch.config.settings import Settings
     from llmapigateway_tpu_torch.ops.flash_attention import (body_name,
                                                             reset_launches)
-    from llmapigateway_tpu_torch.providers.local import make_local_provider
-    from llmapigateway_tpu_torch.server.app import build_app
-    from llmapigateway_tpu_torch.utils.sse import SSEParser
 
     layout = engine_cfg["kv_layout"]
-    model = engine_cfg["preset"]
-    with tempfile.TemporaryDirectory() as cfg_dir:
-        with open(os.path.join(cfg_dir, "providers.json"), "w") as f:
-            json.dump([{"local": {"type": "local", "engine": engine_cfg}}], f)
-        with open(os.path.join(cfg_dir, "models_fallback_rules.json"), "w") as f:
-            json.dump([{"gateway_model_name": "gw/model",
-                        "fallback_models": [{"provider": "local",
-                                             "model": model}]}], f)
-        settings = Settings(fallback_provider="local", config_dir=cfg_dir)
-        app = build_app(settings, loader=ConfigLoader(cfg_dir, "local"),
-                        local_factory=functools.partial(make_local_provider,
-                                                        device="cuda"))
-        runner = web.AppRunner(app)
-        await runner.setup()
-        port = _free_port()
-        site = web.TCPSite(runner, "127.0.0.1", port)
-        await site.start()
-        try:
-            t0 = time.monotonic()
-            provider = await app["gateway"].registry.get("local")
-            check(provider is not None,
-                  f"serve {tag}: the local provider did not build")
-            engine = provider.engine
-            torch.cuda.synchronize()
-            build_s = time.monotonic() - t0
-            n_layers = engine.model_cfg.n_layers
-            window = engine.model_cfg.sliding_window
-            cache_kind = (f"{type(engine.cache).__name__}"
-                          f"{'[int8]' if isinstance(engine.cache.k, dict) else ''}")
+    async with _Gateway({"local": engine_cfg}) as gw:
+        t0 = time.monotonic()
+        provider = await gw.provider("local")
+        engine = provider.engine
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        n_layers = engine.model_cfg.n_layers
+        window = engine.model_cfg.sliding_window
+        cache_kind = (f"{type(engine.cache).__name__}"
+                      f"{'[int8]' if isinstance(engine.cache.k, dict) else ''}")
 
-            words = ("the quick brown fox jumps over the lazy dog while "
-                     "paged attention streams every live key once ")
-            unit, lengths = prompt_spec
-            if unit == "tokens":
-                # Bytes for the wanted prompt lengths, less the chat
-                # template's and the tokenizer's own tokens.
-                overhead = len(provider._build_genrequest({"messages": [
-                    {"role": "user", "content": ""}]}).prompt_ids)
-                lengths = [n - overhead for n in lengths]
-            prompts = [(words * (n // len(words) + 1))[:n] for n in lengths]
-            streams = [True, False, True, False]
+        words = ("the quick brown fox jumps over the lazy dog while "
+                 "paged attention streams every live key once ")
+        unit, lengths = prompt_spec
+        if unit == "tokens":
+            # Bytes for the wanted prompt lengths, less the chat
+            # template's and the tokenizer's own tokens.
+            overhead = len(provider._build_genrequest({"messages": [
+                {"role": "user", "content": ""}]}).prompt_ids)
+            lengths = [n - overhead for n in lengths]
+        prompts = [(words * (n // len(words) + 1))[:n] for n in lengths]
+        streams = [True, False, True, False]
 
-            async def one(session, text, stream):
-                body = {"model": "gw/model", "temperature": 0,
-                        "max_tokens": SERVE_MAX_TOKENS, "stream": stream,
-                        "messages": [{"role": "user", "content": text}]}
-                async with session.post(
-                        f"http://127.0.0.1:{port}/v1/chat/completions",
-                        json=body) as resp:
-                    if resp.status != 200:
-                        raise SmokeFailure(
-                            f"serve {tag}: HTTP {resp.status}: "
-                            f"{await resp.text()}")
-                    if not stream:
-                        out = await resp.json()
-                        return {"usage": out["usage"],
-                                "text": out["choices"][0]["message"]["content"],
-                                "finish": out["choices"][0]["finish_reason"]}
-                    parser, frames = SSEParser(), []
-                    async for chunk in resp.content.iter_any():
-                        frames.extend(parser.feed(chunk))
-                    check(bool(frames) and frames[-1].is_done,
-                          f"serve {tag}: SSE stream did not end in [DONE]: "
-                          f"{[fr.data[:200] for fr in frames[-2:]]}")
-                    usage = [fr.json["usage"] for fr in frames
-                             if fr.json and "usage" in fr.json]
-                    choices = [fr.json["choices"][0] for fr in frames
-                               if fr.json and fr.json.get("choices")]
-                    text = "".join(c["delta"].get("content") or ""
-                                   for c in choices)
-                    finish = [c["finish_reason"] for c in choices
-                              if c.get("finish_reason")]
-                    check(len(usage) == 1,
-                          f"serve {tag}: SSE usage frame missing")
-                    return {"usage": usage[0], "text": text,
-                            "finish": finish[-1] if finish else None}
+        async def one(session, text, stream):
+            body = {"model": "gw/local", "temperature": 0,
+                    "max_tokens": SERVE_MAX_TOKENS, "stream": stream,
+                    "messages": [{"role": "user", "content": text}]}
+            return await _chat(session, gw.port, f"serve {tag}", body)
 
-            ring = _watch_ring(engine) if engine.paged else None
-            _gate_first_step(engine, len(prompts))
-            # Zero every launch count just before driving the main path.
-            for fn in ks.all_wrappers():
-                reset_launches(fn)
-            engine.decode_steps = engine.prefill_calls = 0
-            engine.prefill_one_token_calls = 0
-            t1 = time.monotonic()
-            async with aiohttp.ClientSession() as session:
-                results = await asyncio.gather(*[
-                    one(session, p, s) for p, s in zip(prompts, streams)])
-            torch.cuda.synchronize()
-            wall_s = time.monotonic() - t1
-            launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
-            bodies = {fn.__name__: dict(fn.body_launches)
-                      for fn in ks.all_wrappers()}
-            steps = {"decode_steps": engine.decode_steps,
-                     "prefill_calls": engine.prefill_calls,
-                     "prefill_one_token_calls":
-                     engine.prefill_one_token_calls}
-            mc = engine.model_cfg
-            geometry = {"kv_ppb": engine.kv_ppb,
-                        "swa_ring_pages": engine._swa_ring_pages,
-                        "window": window, "head_dim": mc.head_dim,
-                        "group": mc.n_heads // mc.n_kv_heads}
-            if engine.paged:
-                alloc = engine.allocator
-                alloc.check_invariants()
-                geometry.update(
-                    pages_per_slot=alloc.pages_per_slot,
-                    num_pages=alloc.num_pages,
-                    free_pages_after=alloc.free_pages,
-                    free_pages_expected=alloc.num_pages - engine.kv_ppb,
-                    **ring)
-        finally:
-            await runner.cleanup()
-    del provider, engine, app, runner, site
+        ring = _watch_ring(engine) if engine.paged else None
+        _gate_first_step(engine, len(prompts))
+        # Zero every launch count just before driving the main path.
+        for fn in ks.all_wrappers():
+            reset_launches(fn)
+        engine.decode_steps = engine.prefill_calls = 0
+        engine.prefill_one_token_calls = 0
+        t1 = time.monotonic()
+        async with aiohttp.ClientSession() as session:
+            results = await asyncio.gather(*[
+                one(session, p, s) for p, s in zip(prompts, streams)])
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t1
+        launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
+        bodies = {fn.__name__: dict(fn.body_launches)
+                  for fn in ks.all_wrappers()}
+        steps = {"decode_steps": engine.decode_steps,
+                 "prefill_calls": engine.prefill_calls,
+                 "prefill_one_token_calls":
+                 engine.prefill_one_token_calls}
+        mc = engine.model_cfg
+        geometry = {"kv_ppb": engine.kv_ppb,
+                    "swa_ring_pages": engine._swa_ring_pages,
+                    "window": window, "head_dim": mc.head_dim,
+                    "group": mc.n_heads // mc.n_kv_heads}
+        if engine.paged:
+            alloc = engine.allocator
+            alloc.check_invariants()
+            geometry.update(
+                pages_per_slot=alloc.pages_per_slot,
+                num_pages=alloc.num_pages,
+                free_pages_after=alloc.free_pages,
+                free_pages_expected=alloc.num_pages - engine.kv_ppb,
+                **ring)
+    del provider, engine, gw
 
     usages = [r["usage"] for r in results]
     for r in results:
@@ -1402,31 +1542,11 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
         check([u["prompt_tokens"] for u in usages] == list(prompt_spec[1]),
               f"serve {tag}: prompt tokens {[u['prompt_tokens'] for u in usages]}"
               f" != {list(prompt_spec[1])}")
-    decode_k = ks.name("decode", layout)
-    prefill_k = ks.name("prefill", layout)
-    other = "contiguous" if layout == "paged" else "paged"
     body = body_name(window, geometry["kv_ppb"],
                      engine_cfg["kv_quant"] == "int8", geometry["head_dim"],
                      geometry["group"])
-    check(launches[decode_k] > 0,
-          f"serve {tag}: the decode kernel never ran on the main path")
-    check(launches[prefill_k] > 0,
-          f"serve {tag}: the prefill kernel never ran on the main path")
-    # A prefill call one token wide runs the decode kernel (the forward's
-    # T == 1 path); every other prefill call runs the prefill kernel. Every
-    # launch is of the configured body at the model's head geometry.
-    one_tok = steps["prefill_one_token_calls"]
-    want = {decode_k: n_layers * (steps["decode_steps"] + one_tok),
-            prefill_k: n_layers * (steps["prefill_calls"] - one_tok)}
-    for name, n in want.items():
-        check(bodies[name] == {body: n},
-              f"serve {tag}: {name} ran {bodies[name]}, expected "
-              f"{{{body!r}: {n}}} ({n_layers} layers x {steps})")
-    for kind in ("decode", "prefill"):
-        name = ks.name(kind, other)
-        check(launches[name] == 0,
-              f"serve {tag}: the {other} layout's kernel {name} ran "
-              f"{launches[name]} times")
+    check_launches(ks, f"serve {tag}", layout, body, n_layers, steps,
+                   launches, bodies)
     ppb_req = engine_cfg.get("kv_pages_per_block", 1)
     if layout == "paged":
         check(geometry["kv_ppb"] == (1 if geometry["swa_ring_pages"]
@@ -1460,6 +1580,34 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
     return res
 
 
+def check_launches(ks, what: str, layout: str, body: str, n_layers: int,
+                   steps: dict, launches: dict, bodies: dict) -> None:
+    """The layout's kernels ran ``body`` once per layer per forward of
+    their kind in the counted run, and the other layout's kernels not at
+    all. A prefill call one token wide runs the decode kernel (the
+    forward's T == 1 path); every other prefill call runs the prefill
+    kernel."""
+    decode_k = ks.name("decode", layout)
+    prefill_k = ks.name("prefill", layout)
+    other = "contiguous" if layout == "paged" else "paged"
+    check(launches[decode_k] > 0,
+          f"{what}: the decode kernel never ran on the main path")
+    check(launches[prefill_k] > 0,
+          f"{what}: the prefill kernel never ran on the main path")
+    one_tok = steps["prefill_one_token_calls"]
+    want = {decode_k: n_layers * (steps["decode_steps"] + one_tok),
+            prefill_k: n_layers * (steps["prefill_calls"] - one_tok)}
+    for name, n in want.items():
+        check(bodies[name] == {body: n},
+              f"{what}: {name} ran {bodies[name]}, expected "
+              f"{{{body!r}: {n}}} ({n_layers} layers x {steps})")
+    for kind in ("decode", "prefill"):
+        name = ks.name(kind, other)
+        check(launches[name] == 0,
+              f"{what}: the {other} layout's kernel {name} ran "
+              f"{launches[name]} times")
+
+
 def serve_phase(torch, ks, card: str) -> dict:
     """Phase 5: each served configuration in turn; the card holds one
     engine at a time."""
@@ -1468,15 +1616,7 @@ def serve_phase(torch, ks, card: str) -> dict:
         t0 = time.monotonic()
         out[tag] = asyncio.run(_serve(torch, ks, card, tag, engine_cfg,
                                       prompt_spec))
-        gc.collect()
-        torch.cuda.empty_cache()
-        freed = torch.cuda.memory_allocated()
-        emit({"phase": "serve-freed", "config": tag,
-              "allocated_bytes": freed,
-              "seconds": time.monotonic() - t0})
-        check(freed < FREED_BYTES_MAX,
-              f"serve {tag}: {freed} bytes still allocated after the engine "
-              f"stopped")
+        _freed(torch, tag, t0)
     same = {f"{a}=={b}": out[a]["texts"] == out[b]["texts"]
             for a, b in SAME_TEXT}
     # Information: the llama layouts read the same values in the same order
@@ -1489,6 +1629,249 @@ def serve_phase(torch, ks, card: str) -> dict:
     for pair, ok in same.items():
         check(ok, f"serve: {pair} streamed different text")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the prefix cache, served at llama-3-8b full width
+# ---------------------------------------------------------------------------
+
+def _prefix_messages(system: str, question: str) -> list:
+    return [{"role": "system", "content": system},
+            {"role": "user", "content": question}]
+
+
+def _prefix_texts(provider, n_systems: int, n_questions: int):
+    """``n_systems`` distinct system prompts (distinct from their first
+    block on) whose tokens shared with any question end PREFIX_TOKENS +
+    PREFIX_SHARED_EXTRA into the prompt, and ``n_questions`` ~100-character questions that
+    differ from their first character; the shared token count."""
+    words = ("a shared system prompt that every request of this tenant "
+             "carries ahead of its own question; ")
+
+    def prompt_ids(system, question):
+        return provider._build_genrequest(
+            {"messages": _prefix_messages(system, question)}).prompt_ids
+
+    def shared(system):
+        a, b = prompt_ids(system, "0"), prompt_ids(system, "1")
+        return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    chars = PREFIX_TOKENS + PREFIX_SHARED_EXTRA - shared("")
+    systems = [(f"{i}: tenant; " + words * (chars // len(words) + 1))[:chars]
+               for i in range(n_systems)]
+    questions = [(f"{i}) what does the shared prompt say about paging, "
+                  f"chunks and blocks of keys, in one short line? ")[:100]
+                 for i in range(n_questions)]
+    return systems, questions, shared(systems[0])
+
+
+def _prefix_cache_whole(engine, what: str) -> dict:
+    """The allocator's refcounts and the tree agree, no request pins a
+    block, and every page is free or resident in the cache."""
+    cache, alloc = engine._prefix_cache, engine.allocator
+    try:
+        cache.check_invariants()
+    except AssertionError as e:
+        raise SmokeFailure(f"{what}: prefix cache invariants: {e}") from None
+    stats = engine.stats()
+    check(stats["prefix_pinned_refs"] == 0,
+          f"{what}: pins left after the run: {stats}")
+    check(stats["free_pages"] + stats["prefix_resident_pages"]
+          == stats["total_pages"],
+          f"{what}: pages neither free nor resident: {stats}")
+    return {k: v for k, v in stats.items() if k.startswith("prefix_")
+            or k.endswith("_pages")}
+
+
+async def _prefix_serve(torch, ks, card: str, tag: str,
+                        engine_cfg: dict) -> dict:
+    """One cold request, then PREFIX_WARM warm ones, one at a time; then
+    the warm prompts again on an engine with prefix_cache false."""
+    import aiohttp
+
+    from llmapigateway_tpu_torch.ops.flash_attention import (body_name,
+                                                            reset_launches)
+    what = f"prefix {tag}"
+    engines = {"cached": engine_cfg,
+               "plain": {**engine_cfg, "prefix_cache": False}}
+    async with _Gateway(engines) as gw:
+        cached = await gw.provider("cached")
+        await gw.provider("plain")
+        engine = cached.engine
+        check(engine._prefix_cache is not None,
+              f"{what}: the engine built no prefix cache")
+        block = engine._prefix_cache.block_tokens
+        (system,), questions, shared = _prefix_texts(cached, 1,
+                                                     1 + PREFIX_WARM)
+        check(PREFIX_TOKENS <= shared < PREFIX_TOKENS + block,
+              f"{what}: {shared} shared tokens, want [{PREFIX_TOKENS}, "
+              f"{PREFIX_TOKENS + block})")
+
+        def body(model, question, stream=False):
+            return {"model": model, "temperature": 0, "stream": stream,
+                    "max_tokens": PREFIX_MAX_TOKENS,
+                    "messages": _prefix_messages(system, question)}
+        for fn in ks.all_wrappers():
+            reset_launches(fn)
+        engine.decode_steps = engine.prefill_calls = 0
+        engine.prefill_one_token_calls = 0
+        results = []
+        async with aiohttp.ClientSession() as session:
+            for i, q in enumerate(questions):
+                calls = engine.prefill_calls
+                r = await _chat(session, gw.port, what,
+                                body("gw/cached", q, stream=i == 2))
+                r["prefill_calls"] = engine.prefill_calls - calls
+                results.append(r)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
+            bodies = {fn.__name__: dict(fn.body_launches)
+                      for fn in ks.all_wrappers()}
+            steps = {"decode_steps": engine.decode_steps,
+                     "prefill_calls": engine.prefill_calls,
+                     "prefill_one_token_calls":
+                     engine.prefill_one_token_calls}
+            plain = [(await _chat(session, gw.port, what,
+                                  body("gw/plain", q)))["text"]
+                     for q in questions[1:]]
+        mc = engine.model_cfg
+        body_launched = body_name(0, engine.kv_ppb,
+                                  engine_cfg.get("kv_quant") == "int8",
+                                  mc.head_dim, mc.n_heads // mc.n_kv_heads)
+        n_layers = mc.n_layers
+        cache_state = _prefix_cache_whole(engine, what)
+        chunk = engine.prefill_chunk
+    del cached, engine, gw
+
+    check_launches(ks, what, "paged", body_launched, n_layers, steps,
+                   launches, bodies)
+    usages = [r["usage"] for r in results]
+    cached_tokens = [u.get("prompt_tokens_details", {}).get("cached_tokens",
+                                                            0)
+                     for u in usages]
+    calls = [r["prefill_calls"] for r in results]
+    # Cold: every chunk of the prompt (5 at 2203 tokens); warm: the chunks
+    # past the cached span (1: a ~155-token tail).
+    want_calls = [-(-(u["prompt_tokens"] - c) // chunk)
+                  for u, c in zip(usages, cached_tokens)]
+    check(cached_tokens == [0] + [PREFIX_TOKENS] * PREFIX_WARM,
+          f"{what}: cached tokens {cached_tokens}")
+    check(calls == want_calls,
+          f"{what}: prefill calls per request {calls}, expected "
+          f"{want_calls}")
+    for r in results:
+        check(r["usage"]["completion_tokens"] > 0
+              and r["finish"] in ("length", "stop"),
+              f"{what}: unexpected completion {r['usage']} ({r['finish']})")
+    same = [r["text"] == t for r, t in zip(results[1:], plain)]
+    res = {"phase": "prefix", "config": tag, "card": card,
+           "engine": engine_cfg, "block_tokens": block,
+           "shared_prompt_tokens": shared,
+           "prompt_tokens": [u["prompt_tokens"] for u in usages],
+           "cached_tokens": cached_tokens,
+           "prefill_calls_per_request": calls,
+           "same_text_as_no_cache": same,
+           "cold_ttft_ms": usages[0].get("ttft_ms"),
+           "warm_ttft_ms": [u.get("ttft_ms") for u in usages[1:]],
+           "launches": launches, "body_launches": bodies, **steps,
+           "cache": cache_state,
+           "note": "TTFT is information only"}
+    emit(res)
+    check(all(same), f"{what}: a warm request's text differs from the same "
+                     f"prompt's without the cache: {same}")
+    return res
+
+
+async def _evict_serve(torch, card: str, prompt_tokens: int) -> dict:
+    """EVICT_PROMPTS distinct system prompts, one request each, one at a
+    time, on a pool that holds EVICT_PROMPTS - 1 requests' indexed blocks
+    and one free page less than a reservation."""
+    import aiohttp
+
+    from llmapigateway_tpu_torch.config.schemas import LocalEngineConfig
+    page = LocalEngineConfig(**PREFIX_LLAMA).kv_page_size
+    need = -(-(prompt_tokens + PREFIX_MAX_TOKENS) // page)
+    kept = (prompt_tokens + PREFIX_MAX_TOKENS - 1) // page
+    num_pages = 1 + (EVICT_PROMPTS - 1) * kept + need - 1
+    engine_cfg = {**PREFIX_LLAMA, "kv_num_pages": num_pages}
+    async with _Gateway({"cached": engine_cfg}) as gw:
+        provider = await gw.provider("cached")
+        engine = provider.engine
+        systems, (question,), _ = _prefix_texts(provider, EVICT_PROMPTS, 1)
+        results = []
+        async with aiohttp.ClientSession() as session:
+            for system in systems:
+                results.append(await _chat(session, gw.port, "evict", {
+                    "model": "gw/cached", "temperature": 0, "stream": False,
+                    "max_tokens": PREFIX_MAX_TOKENS,
+                    "messages": _prefix_messages(system, question)}))
+        torch.cuda.synchronize()
+        cache_state = _prefix_cache_whole(engine, "evict")
+    del provider, engine, gw
+    res = {"phase": "prefix-evict", "card": card, "engine": engine_cfg,
+           "prompt_tokens": [r["usage"]["prompt_tokens"] for r in results],
+           "completion_tokens": [r["usage"]["completion_tokens"]
+                                 for r in results],
+           "finish": [r["finish"] for r in results], "cache": cache_state}
+    emit(res)
+    check(res["prompt_tokens"] == [prompt_tokens] * EVICT_PROMPTS,
+          f"evict: prompt tokens {res['prompt_tokens']}")
+    check(cache_state["prefix_evicted_blocks"] > 0,
+          f"evict: nothing was evicted: {cache_state}")
+    check(all(n > 0 for n in res["completion_tokens"])
+          and all(f in ("length", "stop") for f in res["finish"]),
+          f"evict: a request did not complete: {res}")
+    return res
+
+
+def _freed(torch, what: str, t0: float) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = torch.cuda.memory_allocated()
+    emit({"phase": "serve-freed", "config": what, "allocated_bytes": freed,
+          "seconds": time.monotonic() - t0})
+    check(freed < FREED_BYTES_MAX,
+          f"{what}: {freed} bytes still allocated after the engine stopped")
+
+
+def prefix_phase(torch, ks, card: str) -> dict:
+    """Phase 7: PREFIX_RUNS, then the eviction run; one gateway at a
+    time."""
+    out = {}
+    for tag, engine_cfg in PREFIX_RUNS:
+        t0 = time.monotonic()
+        out[tag] = asyncio.run(_prefix_serve(torch, ks, card, tag,
+                                             engine_cfg))
+        _freed(torch, f"prefix {tag}", t0)
+    t0 = time.monotonic()
+    out["evict"] = asyncio.run(_evict_serve(
+        torch, card, out[PREFIX_RUNS[0][0]]["prompt_tokens"][0]))
+    _freed(torch, "prefix evict", t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the port's bench tool, short
+# ---------------------------------------------------------------------------
+
+def bench_phase(torch) -> dict:
+    """The bench tool (llmapigateway_tpu_torch/tools/bench.py) at
+    BENCH_ARGS on the card; it prints its own JSON line."""
+    from llmapigateway_tpu_torch.tools import bench
+    result = bench.main(BENCH_ARGS)
+    extra = result.get("extra", {})
+    sp = extra.get("shared_prefix") or {}
+    emit({"phase": "bench", "args": BENCH_ARGS, "metric": result["metric"],
+          "value": result["value"], "card": extra.get("card"),
+          "shared_prefix": sp, "errors": extra.get("errors")})
+    check(result["value"] > 0, f"bench: value {result['value']}")
+    check(not extra.get("errors"), f"bench: rungs failed: {extra}")
+    check(str(extra.get("card")).endswith("W"),
+          f"bench: no card name and power limit: {extra.get('card')}")
+    check(bool(sp) and sp["warm_prefill_calls_max"]
+          < sp["cold_prefill_calls"],
+          f"bench: warm requests did not skip prefill: {sp}")
+    _freed(torch, "bench", time.monotonic())
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1702,6 +2085,12 @@ def main(argv=()) -> int:
         t0 = time.monotonic()
         serve = serve_phase(torch, ks, smi)
         seconds["serve"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        prefix_phase(torch, ks, smi)
+        seconds["prefix"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        bench_phase(torch)
+        seconds["bench"] = time.monotonic() - t0
 
         line = kernels_line(kernel_rows, serve, insert_rows, tools)
     except SmokeFailure as e:

@@ -87,8 +87,8 @@ class LocalEngineConfig(BaseModel):
     kv_page_size: int = 256
     kv_num_pages: int = 0           # 0 → derived from max_batch_size*max_seq_len
     kv_pages_per_block: int = 1
-    # Radix prefix cache over the paged pool (the JAX default is on; the
-    # PyTorch engine refuses it until it is ported).
+    # Radix prefix cache over the paged pool (on by default, as in JAX;
+    # inert on the contiguous layout and for sliding-window models).
     prefix_cache: bool = True
     hbm_peak_gbps: float = 0.0
     prefill_chunk: int = 512

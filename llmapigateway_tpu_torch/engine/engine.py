@@ -46,6 +46,12 @@ in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
   table entry per run, when the geometry allows it (the resolved run length
   is ``kv_ppb``; the SWA ring and non-divisible geometry fall back to 1, as
   in the JAX engine).
+* **The radix prefix cache** (``prefix_cache``, on by default as in the
+  JAX engine; engine/prefix_cache.py): on the paged layout, for models
+  without a sliding window, a request whose prompt starts with resident
+  blocks maps their pages into its table row at admission and starts its
+  prefill at the match; a releasing slot indexes its written blocks. The
+  knob is inert on the contiguous layout and for windowed models.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking
 for ``cuda`` where there is none raises instead of running on the CPU.
@@ -71,6 +77,7 @@ from ..ops import _kernels
 from ..ops.flash_attention import make_cache_attention_fn
 from ..ops.paged_attention import PagedKVCache, make_paged_attention_fn
 from .paged import PageAllocator
+from .prefix_cache import RadixPrefixCache
 from .sampling import SamplingParams, sample
 from .tokenizer import IncrementalDetokenizer, load_tokenizer
 
@@ -114,6 +121,11 @@ class GenRequest:
     t_submit: float = field(default_factory=time.monotonic)
     t_first_token: float | None = None
     t_done: float | None = None
+    # Prefix cache: prompt tokens served from resident KV (prefill skipped),
+    # the matched nodes this request pins, and the lookup's wall time.
+    cached_tokens: int = 0
+    prefix_nodes: list = field(default_factory=list)
+    prefix_lookup_ms: float | None = None
 
     @property
     def done(self) -> bool:
@@ -151,17 +163,6 @@ def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
     if cfg.kv_quant not in ("", "int8"):
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}; expected "
                          f"'' | 'int8'")
-    # The prefix cache exists only over the page pool, and there only for
-    # models without a sliding window: the JAX engine treats the knob as
-    # inert under the contiguous layout and for sliding-window models
-    # (engine.py:720-722 sits in its paged branch and requires
-    # `not c.sliding_window`), so the port refuses it only where it would
-    # mean something. Otherwise a contiguous or mistral providers.json with
-    # the default prefix_cache=true would be served by the JAX package and
-    # refused here.
-    if (cfg.kv_layout == "paged" and cfg.prefix_cache
-            and not model_cfg.sliding_window):
-        raise not_ported("prefix_cache=true", "prefix cache")
     if cfg.spec_draft_len:
         raise not_ported("spec_draft_len", "speculative decoding")
     if cfg.quant:
@@ -206,13 +207,16 @@ class InferenceEngine:
     """Owns params, the KV cache, and the batching loop."""
 
     def __init__(self, engine_cfg: LocalEngineConfig,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 model_cfg: ModelConfig | None = None):
+        """``model_cfg`` overrides the preset's architecture (as in the JAX
+        engine; the bench's long-context and window rungs use it)."""
         self.cfg = engine_cfg
         if engine_cfg.model_path:
             raise not_ported("model_path (checkpoint loading)", "checkpoints")
         if not engine_cfg.preset:
             raise ValueError("local engine needs 'preset'")
-        model_cfg = get_preset(engine_cfg.preset)
+        model_cfg = model_cfg or get_preset(engine_cfg.preset)
         _refuse_unported(engine_cfg, model_cfg)
         _refuse_unbuilt_geometry(engine_cfg, model_cfg, device)
         self.model_cfg = model_cfg
@@ -268,6 +272,7 @@ class InferenceEngine:
         self.kv_ppb = 1                 # multi-page kernel blocking (paged)
         self._swa_ring_pages = 0        # pages a ring slot holds (0: no ring)
         self._swa_margin = 0            # in-flight burst margin, tokens
+        self._prefix_cache: RadixPrefixCache | None = None
         if self.paged:
             page = self.kv_page
             per_slot = (self.S + page - 1) // page
@@ -325,6 +330,15 @@ class InferenceEngine:
                     f"max-footprint sequence ({min_hold} pages of {page})")
             self.allocator = PageAllocator(num_pages, page, self.B, self.S,
                                            pages_per_block=self.kv_ppb)
+            # Radix prefix cache over the pool, one block = one superpage
+            # run so the multi-page kernels read shared pages unchanged;
+            # only where page identity is stable for a sequence's lifetime
+            # (no SWA ring, whose rotation re-targets pages; windowed
+            # attention never re-reads an old prefix anyway), as in JAX.
+            if (self.cfg.prefix_cache and not self._swa_ring_pages
+                    and not c.sliding_window):
+                self._prefix_cache = RadixPrefixCache(
+                    self.allocator, block_tokens=self.kv_ppb * page)
             self.cache = PagedKVCache.create(c, num_pages, page, self.dtype,
                                              kv_quant=self.kv_quant,
                                              device=self.device)
@@ -460,17 +474,54 @@ class InferenceEngine:
                 self._head = None
                 continue
             total = min(len(req.prompt_ids) + req.max_tokens, self.S)
+            matched, shared_pages, nodes = 0, [], []
+            cache = self._prefix_cache
             if self.allocator is not None:
-                if not self.allocator.can_admit(
-                        total, ring_pages=self._swa_ring_pages):
+                # Prefix lookup: resident prompt blocks map into the new
+                # slot's table row instead of being allocated and
+                # prefilled. Penalty requests bypass the cache: prefill
+                # builds their token counts, which a skipped span would
+                # leave incomplete. The matched nodes are pinned here; the
+                # pins drop at slot release, or below if the head waits.
+                if (cache is not None and req.presence_penalty == 0
+                        and req.frequency_penalty == 0):
+                    t_lookup = time.monotonic()
+                    matched, shared_pages, nodes = cache.match(
+                        req.prompt_ids)
+                    req.prefix_lookup_ms = 1000.0 * (time.monotonic()
+                                                     - t_lookup)
+                ok = self.allocator.can_admit(
+                    total, ring_pages=self._swa_ring_pages,
+                    shared_pages=len(shared_pages))
+                if not ok and cache is not None:
+                    # Page pressure: evict cold cache entries (LRU leaves;
+                    # pinned blocks are untouchable) before the head waits.
+                    short = self.allocator.fresh_shortfall(
+                        total, ring_pages=self._swa_ring_pages,
+                        shared_pages=len(shared_pages))
+                    if short > 0 and cache.evict(short) > 0:
+                        ok = self.allocator.can_admit(
+                            total, ring_pages=self._swa_ring_pages,
+                            shared_pages=len(shared_pages))
+                if not ok:
+                    if cache is not None:
+                        cache.release_nodes(nodes)
                     break
             self._head = None
             req.slot = self._free_slots.pop()
             if self.allocator is not None:
                 self.allocator.allocate(req.slot, total,
-                                        ring_pages=self._swa_ring_pages)
+                                        ring_pages=self._swa_ring_pages,
+                                        shared_pages=shared_pages)
                 self._table_dirty = True
-            req.prefill_pos = 0
+                if cache is not None:
+                    cache.record_lookup(matched)
+                    req.cached_tokens = matched
+                    req.prefix_nodes = nodes
+            # A warm admission starts prefill at the match: the first
+            # chunk's attention reads the shared pages through the table as
+            # stale keys, like a later chunk of a cold prefill.
+            req.prefill_pos = req.cached_tokens
             self._running[req.slot] = req
             self._prefilling[req.slot] = req
 
@@ -760,8 +811,31 @@ class InferenceEngine:
             req.out_queue.put_nowait(Delta(text=delta, finish_reason=reason))
         self._release(req)
 
+    def _prefix_release(self, req: GenRequest) -> None:
+        """Insert-on-release, then unpin: index the slot's written KV into
+        the prefix cache BEFORE the allocator frees the row, then drop the
+        pins taken at admission. Only tokens whose cache writes have landed
+        are indexed: a slot still prefilling covers the chunks that ran
+        (``prefill_pos``); a decoding slot covers the prompt and every
+        generated token that has been the input of a decode step (the last
+        sampled token's KV is not written yet)."""
+        cache = self._prefix_cache
+        try:
+            if req.slot in self._prefilling:
+                n_ok = req.prefill_pos
+            else:
+                n_ok = len(req.prompt_ids) + max(0, len(req.generated) - 1)
+            seq = req.prompt_ids + req.generated
+            cache.insert(seq, min(n_ok, self.S, len(seq)),
+                         self.allocator.table[req.slot])
+        finally:
+            cache.release_nodes(req.prefix_nodes)
+            req.prefix_nodes = []
+
     def _release(self, req: GenRequest) -> None:
         if req.slot in self._running:
+            if self._prefix_cache is not None:
+                self._prefix_release(req)
             del self._running[req.slot]
             self._prefilling.pop(req.slot, None)
             self.active[req.slot] = False
@@ -771,3 +845,31 @@ class InferenceEngine:
             if self.allocator is not None:
                 self.allocator.release(req.slot)
                 self._table_dirty = True
+
+    # -- introspection --------------------------------------------------------
+    def stats(self) -> dict:
+        """Scheduler, pool and prefix-cache state plus the work counters
+        (the JAX engine's ``stats()`` keys that the port has)."""
+        out = {
+            "running": len(self._running),
+            "queued": self._queue.qsize() + (1 if self._head else 0),
+            "free_slots": len(self._free_slots),
+            "batch_size": self.B,
+            "max_seq_len": self.S,
+            "kv_layout": self.cfg.kv_layout,
+            "prefill_calls": self.prefill_calls,
+            "prefill_one_token_calls": self.prefill_one_token_calls,
+            "decode_steps": self.decode_steps,
+        }
+        if self.kv_quant:
+            out["kv_quant"] = self.kv_quant
+        if self.allocator is not None:
+            out["free_pages"] = self.allocator.free_pages
+            out["total_pages"] = (self.allocator.num_pages
+                                  - self.allocator.pages_per_block)
+            out["page_size"] = self.allocator.page_size
+            if self.kv_ppb > 1:
+                out["pages_per_block"] = self.kv_ppb
+            if self._prefix_cache is not None:
+                out.update(self._prefix_cache.stats())
+        return out

@@ -76,6 +76,11 @@ class LocalProvider(Provider):
             "prompt_tokens": len(req.prompt_ids),
             "completion_tokens": n_gen,
             "total_tokens": len(req.prompt_ids) + n_gen}
+        if req.cached_tokens:
+            # OpenAI-compatible prefix-cache accounting: the span of the
+            # prompt served from resident KV (its prefill skipped).
+            usage["prompt_tokens_details"] = {
+                "cached_tokens": req.cached_tokens}
         if req.t_first_token is not None:
             usage["ttft_ms"] = round(
                 (req.t_first_token - req.t_submit) * 1000.0, 2)

@@ -12,11 +12,9 @@ every slot with a 128-token prompt through ``_exec_prefill``, then times:
    — the counterpart of the JAX tool's dispatch/fetch split;
 3. chained bursts with one fetch at the end.
 
-The paged engine is built with ``prefix_cache: false``: the port refuses
-the default ``true`` on the paged layout for a full-attention model until
-the prefix cache is ported (ROADMAP.md, port queue: prefix cache), where
-the JAX tool builds with it on. Its bursts never share a prefix, so the
-cache would not change what is timed.
+The paged engine keeps the default ``prefix_cache: true``, as the JAX
+tool's does; the slots are filled through ``_exec_prefill``, outside the
+scheduler, so the cache sees none of this traffic.
 
     python -m llmapigateway_tpu_torch.tools.profile_engine_burst
         [--attention auto] [--burst 32] [--kv contiguous|paged]
@@ -43,8 +41,7 @@ def build_engine(args, device) -> InferenceEngine:
         preset=args.preset, dtype="bfloat16", max_batch_size=8,
         max_seq_len=1024, prefill_chunk=PROMPT_TOKENS,
         decode_burst=args.burst, kv_layout=args.kv,
-        attention=args.attention,
-        **({"prefix_cache": False} if args.kv == "paged" else {}))
+        attention=args.attention)
     return InferenceEngine(cfg, device=device)
 
 
