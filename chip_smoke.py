@@ -7,10 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 or, to time the decode (or prefill) rows of several checkouts in turn with
 one timer (say a ``git archive`` of the parent, this one, this one, the
-parent)::
+parent), or to run each checkout's own bench tool in turn::
 
     python3 chip_smoke.py --decode-ab TREE [TREE ...] [--out FILE]
     python3 chip_smoke.py --prefill-ab TREE [TREE ...] [--out FILE]
+    python3 chip_smoke.py --bench-ab TREE [TREE ...] [--out FILE]
 
 Phases, each printed as JSON lines:
 
@@ -60,13 +61,22 @@ Phases, each printed as JSON lines:
              over 16-token pages; a packed pool read two pages a run; and
              the LM head at llama-3-8b's shape, which must give fp32 logits
              equal to the fp32 product of its bf16 operands.
-5. tools   — the three engine-driving tools (llmapigateway_tpu_torch/tools/)
+5. graphs  — the decode graphs at llama-3-8b full width (paged bf16, paged
+             int8, contiguous bf16) and at mistral-7b through the paged SWA
+             ring (int8), each engine capturing one graph per burst depth
+             and sampler variant at build: from one device state, the
+             greedy burst replayed by its graph and the same burst run
+             eagerly give equal tokens and ``torch.equal`` KV and buffers;
+             the sampled graph replayed twice from one generator state
+             gives equal tokens, each inside the plain sampler's candidate
+             set (top-k 40, top-p 0.9) along the replayed tokens.
+6. tools   — the three engine-driving tools (llmapigateway_tpu_torch/tools/)
              with their default flags at tinyllama-1.1b width and depth:
              every KV-insert variant, kernel #5 launched twice per layer
              per step and its caches equal to index_put's; the decode
              ablation with the kernels' attention (kernel #3 once per layer
              per step); the engine's bursts on both layouts.
-6. serve   — the port's aiohttp app in-process on a local port, once per
+7. serve   — the port's aiohttp app in-process on a local port, once per
              served configuration (SERVE_RUNS): llama-3-8b on both layouts
              and cache types and with two- and four-page blocks, mistral-7b
              (both cache types: contiguous; paged through the SWA page ring;
@@ -89,7 +99,11 @@ Phases, each printed as JSON lines:
              rotates in prefill and in decode, no slot ever holds more than
              the ring, and every page comes back. Pairs of runs that read
              the same values in the same order must stream the same text.
-7. prefix  — the prefix cache at llama-3-8b full width (paged, page 256,
+             Each run reports the decode graphs captured, their replays,
+             the synchronous bursts and the early flushes of a burst in
+             flight; full-depth bursts must have replayed (the launch
+             counts above include every replay's launches).
+8. prefix  — the prefix cache at llama-3-8b full width (paged, page 256,
              chunk 512, prefix_cache at its default; bf16, int8, and bf16
              with two-page blocks): one cold request and four warm ones,
              one at a time, sharing a 2048-token system prompt, over HTTP.
@@ -103,11 +117,12 @@ Phases, each printed as JSON lines:
              that must evict for the fifth. Cold and warm TTFT are
              information only. Kernels #1 and #2 over aliased page tables
              (the cache's shared blocks) are held in the kernel phase.
-8. bench   — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
-             32 steps, 3 TTFT probes and its shared-prefix rung: its JSON
-             line, a positive value, and warm requests that ran fewer
-             prefill calls than the cold one.
-9. the ``kernels`` line (decode rows with the key split ``n_split`` and
+9. bench   — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
+             32 steps, 3 TTFT probes, its shared-prefix rung and its
+             ``--ttft-target 200`` rung: its JSON line, a positive value,
+             warm requests that ran fewer prefill calls than the cold one,
+             and the controller rung served through decode graphs.
+10. the ``kernels`` line (decode rows with the key split ``n_split`` and
    workspace bytes of their timed launch), the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
@@ -356,6 +371,24 @@ SAME_TEXT = [("mistral-contiguous-bf16", "mistral-paged-bf16-ring"),
              ("mistral-contiguous-int8", "mistral-paged-int8-ring"),
              ("phi3-contiguous-bf16", "phi3-paged-bf16-ring"),
              ("mistral-paged-int8-ppb2", "mistral-paged-int8-ppb4")]
+# The decode graphs at llama-3-8b full width on paged bf16 and int8 and
+# contiguous bf16, and at mistral-7b through the paged SWA ring (int8): six
+# of the eight slots prefilled (two ride along inactive), lengths inside a
+# page, across pages and chunks, and (mistral-7b) past the window and the
+# ring.
+GRAPH_RUNS = [
+    ("llama-paged-bf16", {**LLAMA, **PAGED, "prefix_cache": False,
+                          "kv_quant": ""}, (40, 300, 700, 1100, 2000, 257)),
+    ("llama-paged-int8", {**LLAMA, **PAGED, "prefix_cache": False,
+                          "kv_quant": "int8"},
+     (40, 300, 700, 1100, 2000, 257)),
+    ("llama-contiguous-bf16", {**LLAMA, "kv_layout": "contiguous",
+                               "kv_quant": ""},
+     (40, 300, 700, 1100, 2000, 257)),
+    ("mistral-paged-int8-ring", {**MISTRAL, **PAGED, "kv_quant": "int8",
+                                 "kv_num_pages": 8 * MISTRAL_RING + 1},
+     (1500, 4600, 5200, 24 * 256 - 16, 300, 4100)),
+]
 # The prefix cache at llama-3-8b full width, paged, page 256, chunk 512,
 # prefix_cache at its default (the first run is LocalEngineConfig's
 # defaults but for preset and layout): one cold request, then PREFIX_WARM
@@ -389,7 +422,8 @@ ALIASED = dict(H=32, KV=8, Dh=128, page=256, NP=16, shared_pages=8,
 # The bench phase: the port's bench tool on the card at a short setting.
 BENCH_ARGS = ["--preset", "tinyllama-1.1b", "--steps", "32",
               "--ttft-probes", "3", "--eight-b", "0", "--swa", "0",
-              "--long-ctx", "0", "--second-preset", ""]
+              "--long-ctx", "0", "--second-preset", "", "--ttft-target",
+              "200"]
 FREED_BYTES_MAX = 2 ** 30
 SOURCES = {"paged": "paged_attention.cu", "contiguous": "flash_attention.cu"}
 REPLACES = {
@@ -1244,7 +1278,213 @@ def check_head(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the engine-driving tools at tinyllama-1.1b width and depth
+# Phase 5: the decode graphs, replay against eager, at full width
+# ---------------------------------------------------------------------------
+
+def _kv_leaves(cache) -> list:
+    """Every tensor of a KV cache (values, and int8 scales)."""
+    out = []
+    for side in (cache.k, cache.v):
+        out += [side["q"], side["s"]] if isinstance(side, dict) else [side]
+    return out
+
+
+def _decode_state(engine) -> list:
+    """The tensors a decode burst reads or writes: the static buffers, the
+    penalty counts and the KV cache."""
+    return [engine._d_tokens, engine._d_lengths, engine._d_active,
+            *engine._d_samp, engine._d_counts, *_kv_leaves(engine.cache)]
+
+
+def _graph_fill(engine, prompt_tokens) -> list:
+    """Prefill one slot per prompt length (random tokens from a seed)
+    through the engine's own chunk path, the SWA ring mapped per chunk as
+    the scheduler maps it; the slots are then decoding, greedy."""
+    import numpy as np
+
+    from llmapigateway_tpu_torch.engine.engine import GenRequest
+    rng = np.random.default_rng(5)
+    reqs = []
+    for slot, n in enumerate(prompt_tokens):
+        req = GenRequest(prompt_ids=rng.integers(
+            2, engine.model_cfg.vocab_size, n).tolist(), max_tokens=64)
+        req.slot = slot
+        if engine.allocator is not None:
+            engine.allocator.allocate(slot, n + 64,
+                                      ring_pages=engine._swa_ring_pages)
+            engine._table_dirty = True
+        while req.prefill_pos < n:
+            if engine._swa_ring_pages:
+                engine._swa_map_chunks([req])
+            engine._prefill_chunk_group([req])
+        reqs.append(req)
+    return reqs
+
+
+def traced_kernels(torch, fn) -> dict:
+    """The kernels the card ran while ``fn`` ran, by name, as the profiler
+    (CUPTI) records them: a graph replay's kernels one by one."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def replay_launches(torch, engine, n: int, greedy: bool) -> dict:
+    """One replay of the (n, greedy) graph under the profiler: per attention
+    kernel and the decode combine, the launches it traced beside the
+    launches its capture recorded (what every replay adds to the wrappers'
+    counters; a combine follows each split launch)."""
+    delta = engine._graphs.graphs[(n, greedy)][2]
+    recorded = {"decode_combine_kernel": 0}
+    for wrapper, (k, bodies, splits) in delta.items():
+        recorded[wrapper.replace("_attention", "_kernel")] = k
+        recorded["decode_combine_kernel"] += sum(
+            c for body, c in bodies.items() if splits[body]["n_split"] > 1)
+    seen = traced_kernels(torch, lambda: engine._graphs.replay(n, greedy))
+    traced = {name: sum(c for kname, c in seen.items() if name in kname)
+              for name in recorded}
+    return {"traced": traced, "recorded": recorded,
+            "kernels_traced": sum(seen.values())}
+
+
+def _graph_check(torch, tag: str, engine_cfg: dict, prompt_tokens) -> dict:
+    """From one device state: a greedy burst replayed by its graph and the
+    same burst run eagerly give equal tokens and equal KV; the sampled
+    graph replayed twice from one generator state gives equal tokens, each
+    inside the plain sampler's candidate set along the replayed tokens; one
+    greedy replay traced by the profiler launched the attention and combine
+    kernels its capture recorded (n_layers x depth decode launches)."""
+    import numpy as np
+
+    from llmapigateway_tpu_torch.config.schemas import LocalEngineConfig
+    from llmapigateway_tpu_torch.engine.engine import InferenceEngine
+    from llmapigateway_tpu_torch.engine.sampling import (apply_penalties,
+                                                         candidate_logits)
+    t0 = time.monotonic()
+    engine = InferenceEngine(LocalEngineConfig(**engine_cfg), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    n = engine.decode_burst
+    captured = sorted(engine._graphs.graphs)
+    check(captured == sorted((d, g) for d in engine._burst_depths if d > 1
+                             for g in (True, False)),
+          f"graphs {tag}: captured {captured} for depths "
+          f"{engine._burst_depths}")
+    with torch.no_grad():
+        reqs = _graph_fill(engine, prompt_tokens)
+        engine._upload_slot_state()
+        if engine._swa_ring_pages:
+            engine._swa_rotate(reqs, n)
+        if engine.paged:
+            engine._device_table()
+        torch.cuda.synchronize()
+        state0 = [t.clone() for t in _decode_state(engine)]
+
+        def restore():
+            for dst, src in zip(_decode_state(engine), state0):
+                dst.copy_(src)
+
+        replayed = engine._graphs.replay(n, True).clone()
+        after_graph = [t.clone() for t in _decode_state(engine)]
+        restore()
+        eager = engine._decode_body(n, True).clone()
+        after_eager = _decode_state(engine)
+        greedy_equal = torch.equal(replayed, eager)
+        state_equal = all(torch.equal(a, b)
+                          for a, b in zip(after_graph, after_eager))
+        del after_graph, after_eager
+
+        # The sampled variant: temperature, top-k and top-p on live slots.
+        live = np.zeros(engine.B, bool)
+        live[:len(reqs)] = True
+        engine.samp_temperature[live] = 0.8
+        engine.samp_top_k[live] = 40
+        engine.samp_top_p[live] = 0.9
+        engine._upload_slot_state()
+        state0[3:8] = [t.clone() for t in engine._d_samp]
+        restore()
+        rng_state = engine._rng.get_state()
+        first = engine._graphs.replay(n, False).clone()
+        restore()
+        engine._rng.set_state(rng_state)
+        second = engine._graphs.replay(n, False).clone()
+        restore()
+        engine._rng.set_state(rng_state)
+        sampled_eager = engine._decode_body(n, False).clone()
+        # Teacher-forced through the replayed tokens: each drawn token has
+        # a finite candidate logit in the plain sampler.
+        restore()
+        in_set = True
+        tokens, lengths = engine._d_tokens.clone(), engine._d_lengths.clone()
+        active = engine._d_active
+        attn = engine._decode_attention()
+        for i in range(n):
+            logits, _ = engine._forward(
+                engine.params, engine.model_cfg, tokens[:, None], lengths,
+                engine.cache, attention_fn=attn, active=active)
+            cand = candidate_logits(apply_penalties(
+                logits[:, 0, :], engine._d_counts, engine._d_samp),
+                engine._d_samp)
+            picked = cand.gather(1, first[i][:, None])[:, 0]
+            in_set &= bool(torch.isfinite(picked[:len(reqs)]).all())
+            tokens = first[i]
+            lengths = torch.where(active, lengths + 1, lengths)
+        restore()
+        launches = replay_launches(torch, engine, n, True)
+        decode_k = ("paged" if engine.paged else "flash") + "_decode_kernel"
+        torch.cuda.synchronize()
+    res = {"phase": "graphs", "config": tag, "engine": engine_cfg,
+           "layers": engine.model_cfg.n_layers, "depths":
+           list(engine._burst_depths), "captured": len(captured),
+           "build_with_capture_s": build_s, "depth": n,
+           "slots": len(reqs), "prompt_tokens": list(prompt_tokens),
+           "swa_ring_pages": engine._swa_ring_pages,
+           "greedy_replay_equals_eager": greedy_equal,
+           "kv_and_buffers_equal": state_equal,
+           "sampled_replays_equal": torch.equal(first, second),
+           "sampled_in_candidate_set": in_set,
+           "sampled_replay_equals_eager": torch.equal(first, sampled_eager),
+           "replay_launches": launches,
+           "note": "sampled_replay_equals_eager is information only"}
+    del engine, state0
+    emit(res)
+    check(greedy_equal, f"graphs {tag}: greedy replay and eager tokens "
+                        f"differ")
+    check(state_equal, f"graphs {tag}: KV or buffers differ after replay "
+                       f"and eager run")
+    check(res["sampled_replays_equal"],
+          f"graphs {tag}: two sampled replays from one generator state "
+          f"differ")
+    check(in_set, f"graphs {tag}: a sampled token outside the plain "
+                  f"sampler's candidate set")
+    check(launches["traced"] == launches["recorded"]
+          and launches["recorded"][decode_k] == res["layers"] * n,
+          f"graphs {tag}: one traced replay launched {launches['traced']}, "
+          f"its capture recorded {launches['recorded']} ({res['layers']} "
+          f"layers x depth {n})")
+    return res
+
+
+def graphs_phase(torch) -> dict:
+    """GRAPH_RUNS in turn, one engine on the card at a time."""
+    out = {}
+    for tag, engine_cfg, prompt_tokens in GRAPH_RUNS:
+        t0 = time.monotonic()
+        out[tag] = _graph_check(torch, tag, engine_cfg, prompt_tokens)
+        _freed(torch, f"graphs {tag}", t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the engine-driving tools at tinyllama-1.1b width and depth
 # ---------------------------------------------------------------------------
 
 def tools_phase(torch, ks) -> dict:
@@ -1317,7 +1557,7 @@ def tools_phase(torch, ks) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: serve /v1/chat/completions at full width, per configuration
+# Phase 7: serve /v1/chat/completions at full width, per configuration
 # ---------------------------------------------------------------------------
 
 def _free_port() -> int:
@@ -1500,6 +1740,7 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
             reset_launches(fn)
         engine.decode_steps = engine.prefill_calls = 0
         engine.prefill_one_token_calls = 0
+        _reset_pipeline(engine)
         t1 = time.monotonic()
         async with aiohttp.ClientSession() as session:
             results = await asyncio.gather(*[
@@ -1513,6 +1754,7 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
                  "prefill_calls": engine.prefill_calls,
                  "prefill_one_token_calls":
                  engine.prefill_one_token_calls}
+        pipeline = _pipeline(engine)
         mc = engine.model_cfg
         geometry = {"kv_ppb": engine.kv_ppb,
                     "swa_ring_pages": engine._swa_ring_pages,
@@ -1547,6 +1789,7 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
                      geometry["group"])
     check_launches(ks, f"serve {tag}", layout, body, n_layers, steps,
                    launches, bodies)
+    check_pipeline(f"serve {tag}", pipeline)
     ppb_req = engine_cfg.get("kv_pages_per_block", 1)
     if layout == "paged":
         check(geometry["kv_ppb"] == (1 if geometry["swa_ring_pages"]
@@ -1574,10 +1817,31 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
            "decode_tok_per_s": [u.get("tokens_per_sec") for u in usages],
            "engine_build_s": build_s, "wall_s": wall_s,
            "launches": launches, "body_launches": bodies, **steps,
+           "pipeline": pipeline,
            "note": "TTFT and tok/s are information only"}
     emit(res)
     res["texts"] = [r["text"] for r in results]
     return res
+
+
+def _reset_pipeline(engine) -> None:
+    """Zero the engine's graph replays, synchronous bursts and flushes."""
+    engine.sync_bursts = engine.flushes = 0
+    engine._graphs.replays = 0
+
+
+def _pipeline(engine) -> dict:
+    """Graphs captured, and since the reset: replays, synchronous bursts,
+    early flushes of a burst in flight."""
+    st = engine.stats()
+    return {k: st[k] for k in ("graphs_captured", "graph_replays",
+                               "sync_bursts", "flushes")}
+
+
+def check_pipeline(what: str, pipeline: dict) -> None:
+    """The run's full-depth bursts were graph replays."""
+    check(pipeline["graphs_captured"] > 0 and pipeline["graph_replays"] > 0,
+          f"{what}: no decode graph replayed on the main path: {pipeline}")
 
 
 def check_launches(ks, what: str, layout: str, body: str, n_layers: int,
@@ -1632,7 +1896,7 @@ def serve_phase(torch, ks, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the prefix cache, served at llama-3-8b full width
+# Phase 8: the prefix cache, served at llama-3-8b full width
 # ---------------------------------------------------------------------------
 
 def _prefix_messages(system: str, question: str) -> list:
@@ -1714,6 +1978,7 @@ async def _prefix_serve(torch, ks, card: str, tag: str,
             reset_launches(fn)
         engine.decode_steps = engine.prefill_calls = 0
         engine.prefill_one_token_calls = 0
+        _reset_pipeline(engine)
         results = []
         async with aiohttp.ClientSession() as session:
             for i, q in enumerate(questions):
@@ -1730,6 +1995,7 @@ async def _prefix_serve(torch, ks, card: str, tag: str,
                      "prefill_calls": engine.prefill_calls,
                      "prefill_one_token_calls":
                      engine.prefill_one_token_calls}
+            pipeline = _pipeline(engine)
             plain = [(await _chat(session, gw.port, what,
                                   body("gw/plain", q)))["text"]
                      for q in questions[1:]]
@@ -1744,6 +2010,7 @@ async def _prefix_serve(torch, ks, card: str, tag: str,
 
     check_launches(ks, what, "paged", body_launched, n_layers, steps,
                    launches, bodies)
+    check_pipeline(what, pipeline)
     usages = [r["usage"] for r in results]
     cached_tokens = [u.get("prompt_tokens_details", {}).get("cached_tokens",
                                                             0)
@@ -1773,7 +2040,7 @@ async def _prefix_serve(torch, ks, card: str, tag: str,
            "cold_ttft_ms": usages[0].get("ttft_ms"),
            "warm_ttft_ms": [u.get("ttft_ms") for u in usages[1:]],
            "launches": launches, "body_launches": bodies, **steps,
-           "cache": cache_state,
+           "pipeline": pipeline, "cache": cache_state,
            "note": "TTFT is information only"}
     emit(res)
     check(all(same), f"{what}: a warm request's text differs from the same "
@@ -1850,7 +2117,7 @@ def prefix_phase(torch, ks, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the port's bench tool, short
+# Phase 9: the port's bench tool, short
 # ---------------------------------------------------------------------------
 
 def bench_phase(torch) -> dict:
@@ -1862,7 +2129,8 @@ def bench_phase(torch) -> dict:
     sp = extra.get("shared_prefix") or {}
     emit({"phase": "bench", "args": BENCH_ARGS, "metric": result["metric"],
           "value": result["value"], "card": extra.get("card"),
-          "shared_prefix": sp, "errors": extra.get("errors")})
+          "shared_prefix": sp, "ttft_target": extra.get("ttft_target"),
+          "errors": extra.get("errors")})
     check(result["value"] > 0, f"bench: value {result['value']}")
     check(not extra.get("errors"), f"bench: rungs failed: {extra}")
     check(str(extra.get("card")).endswith("W"),
@@ -1870,6 +2138,9 @@ def bench_phase(torch) -> dict:
     check(bool(sp) and sp["warm_prefill_calls_max"]
           < sp["cold_prefill_calls"],
           f"bench: warm requests did not skip prefill: {sp}")
+    tt = extra.get("ttft_target") or {}
+    check(tt.get("scheduler_tok_s", 0) > 0 and tt.get("graph_replays", 0) > 0,
+          f"bench: the ttft_target rung did not run on decode graphs: {tt}")
     _freed(torch, "bench", time.monotonic())
     return result
 
@@ -2023,6 +2294,67 @@ def run_ab(kind: str, argv) -> int:
     return 0
 
 
+# The bench tool's arguments for --bench-ab: the headline arms at
+# tinyllama-1.1b with TTFT under load, flags every tree's bench takes.
+BENCH_AB_ARGS = ["--preset", "tinyllama-1.1b", "--steps", "64",
+                 "--ttft-probes", "5", "--eight-b", "0", "--swa", "0",
+                 "--long-ctx", "0", "--second-preset", "",
+                 "--shared-prefix", "0"]
+
+
+def run_bench_ab(argv) -> int:
+    """Each tree's own bench tool at BENCH_AB_ARGS in a fresh process from
+    the tree's root, in the order given: the headline tok/s, every arm's
+    tok/s and ms per step, and the first arm's TTFT p50/p95 under load; for
+    two distinct trees each tree's medians and the change / parent ratios
+    (first tree first)."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --bench-ab")
+    ap.add_argument("trees", nargs="+", help="tree roots, in run order")
+    ap.add_argument("--out", help="also write the report here (JSON)")
+    args = ap.parse_args(argv)
+    runs = []
+    for tree in args.trees:
+        proc = subprocess.run(
+            [sys.executable, "-m", "llmapigateway_tpu_torch.tools.bench",
+             *BENCH_AB_ARGS], capture_output=True, text=True,
+            cwd=os.path.abspath(tree))
+        try:
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            line = None
+        if proc.returncode != 0 or not line or line["value"] <= 0:
+            print(f"chip_smoke --bench-ab: {tree} failed "
+                  f"({proc.returncode}):\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        extra = line["extra"]
+        arms = {k: {"tok_s": v["tok_s"],
+                    "ms_per_decode_step": v["ms_per_decode_step"]}
+                for k, v in extra.items()
+                if isinstance(v, dict) and "tok_s" in v}
+        head = next(v for v in extra.values()
+                    if isinstance(v, dict) and "ttft_p50_ms" in v)
+        runs.append({"tree": tree, "tok_s": line["value"], "arms": arms,
+                     "ttft_p50_ms": head["ttft_p50_ms"],
+                     "ttft_p95_ms": head["ttft_p95_ms"],
+                     "card": extra.get("card")})
+    report = {"kind": "bench", "args": BENCH_AB_ARGS, "runs": runs}
+    trees = list(dict.fromkeys(args.trees))
+    if len(trees) == 2:
+        med = {t: {k: statistics.median(r[k] for r in runs if r["tree"] == t)
+                   for k in ("tok_s", "ttft_p50_ms")} for t in trees}
+        report["median"] = med
+        report["ratio"] = {k: med[trees[1]][k] / med[trees[0]][k]
+                           for k in ("tok_s", "ttft_p50_ms")}
+    text = json.dumps(report, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+    return 0
+
+
 def main(argv=()) -> int:
     try:
         import torch
@@ -2035,6 +2367,8 @@ def main(argv=()) -> int:
         return 2
     if argv[:1] in (["--decode-ab"], ["--prefill-ab"]):
         return run_ab(argv[0][2:-3], argv[1:])
+    if argv[:1] == ["--bench-ab"]:
+        return run_bench_ab(argv[1:])
     sys.path.insert(0, HERE)
     try:
         from llmapigateway_tpu_torch.ops import _kernels
@@ -2079,6 +2413,9 @@ def main(argv=()) -> int:
         t0 = time.monotonic()
         check_model(torch)
         seconds["model"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        graphs_phase(torch)
+        seconds["graphs"] = time.monotonic() - t0
         t0 = time.monotonic()
         tools = tools_phase(torch, ks)
         seconds["tools"] = time.monotonic() - t0

@@ -97,8 +97,9 @@ class LocalEngineConfig(BaseModel):
     decode_burst: int = 8           # chained decode steps per host sync
     # Burst depth while new work is waiting (prefill interleave).
     decode_burst_busy: int = 4
-    # Burst-depth cap from a TTFT target (refused when set: it belongs to the
-    # compiled, pipelined decode step).
+    # TTFT target: the burst-depth controller caps idle bursts at half of it
+    # and busy ones at a quarter, over the engine's fitted step time, and
+    # adds the 1/4, 1/2 and 3/4 depths to the captured ladder. 0 disables.
     ttft_target_ms: float = 0.0
     max_tokens_default: int = 1024
     spec_draft_len: int = 0
@@ -112,7 +113,8 @@ class LocalEngineConfig(BaseModel):
     seq_attention: str = "ring"     # "ring" | "ulysses"
     tokenizer_path: str | None = None
     # XLA's compilation cache, NaN checks, sampler prewarming and profiler
-    # annotations: no meaning off the TPU, accepted and inert here.
+    # annotations: no meaning off the TPU, accepted and inert here (the
+    # port captures both sampler variants' decode graphs at build).
     compilation_cache_dir: str = ""
     prewarm_sampler_variants: bool = True
     debug_nans: bool = False

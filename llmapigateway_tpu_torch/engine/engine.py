@@ -20,10 +20,21 @@ in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
   prefill call, from the last real position of each row. A call one token
   wide runs the decode path by the forward's protocol (stale pool plus
   self column, then the insert), which is the same attention.
-* **Decode bursts.** A burst of decode steps runs back to back on the
-  device; the sampled tokens come to the host once per burst. Bursts are
-  shallow (``decode_burst_busy``) while prefill work waits, deep
-  (``decode_burst``) otherwise.
+* **Decode bursts, compiled and lag-one pipelined.** A burst of decode
+  steps runs back to back on the device; the sampled tokens come to the
+  host once per burst. On the card a burst whose depth is one of
+  ``_burst_depths`` (above 1) is ONE replay of a CUDA graph captured for
+  that depth and sampler variant before the engine serves
+  (engine/decode_graphs.py); on the CPU the same body runs eagerly. Such a
+  burst is pipelined: dispatching burst N returns burst N-1's tokens
+  (fetched through pinned memory behind an event), the host length mirror
+  advances at dispatch, and tokens of a slot released (or re-admitted)
+  while its burst was in flight come back as -1 (``_slot_epoch``). Other
+  depths (a request's budget tail, depth 1) run synchronously after
+  flushing the burst in flight. Depth is ``decode_burst_busy`` while
+  prefill work waits and ``decode_burst`` otherwise; with
+  ``ttft_target_ms`` set, a controller caps it from the engine's own fitted
+  step time (``_burst_depth``).
 * **Deferred-insert decode.** Decode attention reads the STALE pool plus a
   self column, and every layer's new K/V is inserted once per step after
   the layer loop (models/llama.py ``forward_hidden``).
@@ -76,6 +87,7 @@ from ..models.llama import KVCache, forward_hidden, head_logits
 from ..ops import _kernels
 from ..ops.flash_attention import make_cache_attention_fn
 from ..ops.paged_attention import PagedKVCache, make_paged_attention_fn
+from .decode_graphs import DecodeGraphs, LagOneFetch, upload
 from .paged import PageAllocator
 from .prefix_cache import RadixPrefixCache
 from .sampling import SamplingParams, sample
@@ -173,8 +185,6 @@ def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
         raise not_ported(f"mesh={cfg.mesh}", "parallelism")
     if cfg.disaggregation.enabled:
         raise not_ported("disaggregation", "disaggregation")
-    if cfg.ttft_target_ms > 0:
-        raise not_ported("ttft_target_ms", "compiled, pipelined decode step")
     if cfg.supervisor != SupervisorConfig():
         raise not_ported("supervisor", "disaggregation, supervision, "
                                         "observability")
@@ -232,6 +242,17 @@ class InferenceEngine:
         self.decode_burst = max(1, engine_cfg.decode_burst)
         self.decode_burst_busy = max(1, min(engine_cfg.decode_burst_busy,
                                             self.decode_burst))
+        self.ttft_target_ms = max(0.0, engine_cfg.ttft_target_ms)
+        # Depths the decode graphs are captured for (above 1). With a TTFT
+        # target the 3/4, 1/2 and 1/4 rungs give the adaptive cap landing
+        # spots between deep and busy (the cap snaps DOWN to one of them),
+        # each rung a graph per sampler variant (JAX engine.py:300-317).
+        depths = {self.decode_burst, self.decode_burst_busy}
+        if self.ttft_target_ms > 0:
+            for frac in (2, 4):
+                depths.add(max(1, self.decode_burst // frac))
+            depths.add(max(1, 3 * self.decode_burst // 4))
+        self._burst_depths = tuple(sorted(depths))
         # A page larger than S would waste a whole-page tail per slot.
         self.kv_page = max(1, min(engine_cfg.kv_page_size, self.S))
         self.tokenizer = load_tokenizer(engine_cfg.tokenizer_path or None,
@@ -260,10 +281,50 @@ class InferenceEngine:
         self._loop = None
         # Work counters (worker thread): forward calls of each kind. A
         # prefill call one token wide runs the decode attention path, so it
-        # is counted apart as well.
+        # is counted apart as well. Decode steps count at dispatch;
+        # sync_bursts counts the bursts run synchronously, flushes the
+        # bursts in flight fetched before the next pipelined dispatch.
         self.prefill_calls = 0
         self.prefill_one_token_calls = 0
         self.decode_steps = 0
+        self.sync_bursts = 0
+        self.flushes = 0
+        self._init_burst_controller()
+        # The decode graphs, captured before the engine serves: every
+        # pipelined depth, greedy and sampled (a capture never lands inside
+        # a request's TTFT).
+        self._graphs: DecodeGraphs | None = None
+        if self.device.type == "cuda":
+            self._graphs = DecodeGraphs(self._rng)
+            t0 = time.monotonic()
+            for greedy in (True, False):
+                for n in self._burst_depths:
+                    if n > 1:
+                        self._capture(n, greedy)
+            logger.info("decode graphs captured: %d in %.1fs",
+                        len(self._graphs.graphs), time.monotonic() - t0)
+
+    def _init_burst_controller(self) -> None:
+        """State of the ``ttft_target_ms`` burst-depth controller (JAX
+        engine.py:816-864). A burst's wall time is C + d·step (C: the
+        per-burst fixed cost), so the controller keeps an EMA of the burst
+        WALL per depth, fed by steady same-depth pairs only, and fits
+        step = Δwall/Δdepth over the two largest fresh depths (C cancels).
+        The last fitted slope persists for ``_SLOPE_TTL`` samples, and every
+        ``_EXPLORE_EVERY`` idle bursts a steady pair runs one rung deeper,
+        so two fresh depths always exist and the fit never falls back to
+        the C-biased wall/d for good."""
+        self._burst_walls: dict[int, float] = {}
+        self._burst_wall_stamp: dict[int, int] = {}
+        self._burst_wall_n = 0
+        self._fit_slope: float | None = None
+        self._fit_stamp = 0
+        self._idle_burst_i = 0
+        self._explore_pending = 0
+        self._explore_depth = 0
+        self._depth_hist: dict[int, int] = {}
+        self._busy_clamps = 0
+        self._last_burst_depth = 0
 
     # -- initialization ------------------------------------------------------
     def _init_state(self) -> None:
@@ -279,11 +340,10 @@ class InferenceEngine:
             # Sliding-window RING reservation: the windowed kernels never
             # read below pos - window, so a ring of O(window) physical pages
             # serves any context length (ensure_mapped recycles each slot's
-            # oldest dead page onto the next logical page). The JAX engine's
-            # sizing, margin included: decode_burst * (spec_k + 1) covers a
-            # lag-one burst still in flight there; the port has none (and no
-            # speculation), but keeps the formula so ring size and admission
-            # match the JAX engine's.
+            # oldest dead page onto the next logical page). The margin
+            # decode_burst * (spec_k + 1) covers the lag-one burst still in
+            # flight, which reads from its own, older window floor (the JAX
+            # engine's sizing).
             if c.sliding_window:
                 self._swa_margin = self.decode_burst * (
                     self.cfg.spec_draft_len + 1)
@@ -349,7 +409,6 @@ class InferenceEngine:
             self.cache = KVCache.create(c, self.B, self.S, self.dtype,
                                         kv_quant=self.kv_quant,
                                         device=self.device)
-        self._d_table: torch.Tensor | None = None
         self._table_dirty = True
         # Host-authoritative per-slot state, mirrored to the device when it
         # changes (admission, release, prefill completion).
@@ -368,12 +427,40 @@ class InferenceEngine:
                                      device=self.device)
         self._rng = torch.Generator(device=self.device).manual_seed(
             int(time.time() * 1e3) % (2 ** 31))
+        # The decode step's device state: static buffers that every decode
+        # graph reads (and whose tokens and lengths each burst advances in
+        # place), uploaded in place when the host state changes. Prefill
+        # reads the same page table.
+        B, dev = self.B, self.device
+        self._d_tokens = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self._d_lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._d_active = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._d_samp = SamplingParams(
+            temperature=torch.zeros((B,), dtype=torch.float32, device=dev),
+            top_p=torch.ones((B,), dtype=torch.float32, device=dev),
+            top_k=torch.zeros((B,), dtype=torch.int32, device=dev),
+            presence_penalty=torch.zeros((B,), dtype=torch.float32,
+                                         device=dev),
+            frequency_penalty=torch.zeros((B,), dtype=torch.float32,
+                                          device=dev))
+        self._d_table = (torch.zeros(self.allocator.table.shape,
+                                     dtype=torch.int32, device=dev)
+                         if self.paged else None)
+        self._slot_ids = torch.arange(B, device=dev)
         self._d_dirty = True
+        # Lag-one pipelining: the burst in flight, (fetch handle, depth,
+        # active snapshot, slot epochs) at its dispatch. A slot's epoch moves
+        # at every release, so a burst's tokens for a slot released (or
+        # released and re-admitted) since its dispatch come back as -1.
+        self._pending: tuple | None = None
+        self._slot_epoch = np.zeros((B,), np.int64)
+        self._fetch = LagOneFetch(self.decode_burst, B, dev)
 
     def _device_table(self) -> torch.Tensor:
-        if self._table_dirty or self._d_table is None:
-            self._d_table = torch.from_numpy(self.allocator.table).to(
-                self.device)
+        """The page table's static device buffer, uploaded in place when
+        the host table changed (after any burst already dispatched)."""
+        if self._table_dirty:
+            upload(self._d_table, self.allocator.table)
             self._table_dirty = False
         return self._d_table
 
@@ -551,8 +638,11 @@ class InferenceEngine:
         if decoding:
             busy = (self._head is not None or not self._queue.empty()
                     or bool(self._prefilling))
-            burst = self.decode_burst_busy if busy else self.decode_burst
-            # Never burst past any slot's cache capacity or token budget.
+            burst = self._burst_depth(busy)
+            # Never burst past any slot's cache capacity or token budget,
+            # both from DISPATCH-TRUE state (self.lengths advances at
+            # dispatch): with lag-one pipelining len(r.generated) lags a
+            # burst behind and would let a whole discarded burst through.
             for r in decoding:
                 ub = int(self.lengths[r.slot])
                 dispatched = ub - len(r.prompt_ids) + 1
@@ -566,7 +656,12 @@ class InferenceEngine:
                 for req in decoding:
                     if req.done:
                         continue
-                    req.generated.append(int(tokens[req.slot]))
+                    tok = int(tokens[req.slot])
+                    if tok < 0:
+                        # Lag-one: this token array predates the slot's
+                        # current request (masked in _flush_entry).
+                        continue
+                    req.generated.append(tok)
                     self._emit_token(req)
         progressed = bool(decoding) or bool(self._prefilling)
         if not progressed and self._free_slots and (
@@ -591,10 +686,12 @@ class InferenceEngine:
 
     def _swa_rotate(self, decoding: list[GenRequest], advance: int) -> None:
         """Before a decode burst, map the logical pages it will write (from
-        each slot's length through ``advance`` more positions) by recycling
-        pages wholly below the window floor less the burst margin. The
-        JAX engine adds its in-flight lag-one burst to the position; the
-        port runs none, so the dispatch-true length is the position."""
+        each slot's dispatch-true length through ``advance`` more positions)
+        by recycling pages wholly below the window floor less one burst of
+        margin: the lag-one burst still in flight may read near its own,
+        older floor. The table upload lands after that burst on the stream,
+        so it reads the table it was dispatched with (JAX engine.py
+        ``_swa_rotate``, whose ``inflight`` term is speculative bursts')."""
         page = self.allocator.page_size
         w = self.model_cfg.sliding_window
         changed = False
@@ -705,37 +802,149 @@ class InferenceEngine:
                         or np.any(self.samp_presence[a] != 0)
                         or np.any(self.samp_frequency[a] != 0))
 
-    @torch.no_grad()
-    def _decode_burst(self, n_steps: int) -> list[np.ndarray]:
-        """Run ``n_steps`` decode steps back to back on the device, tokens
-        and lengths feeding forward as device tensors; one host fetch at
-        the end. Returns the per-step [B] token arrays in order."""
-        if self._d_dirty:
-            self._d_tokens = self._to_device(self.last_token)
-            self._d_lengths = self._to_device(self.lengths)
-            self._d_active = self._to_device(self.active)
-            self._d_samp = SamplingParams(
-                temperature=self._to_device(self.samp_temperature),
-                top_p=self._to_device(self.samp_top_p),
-                top_k=self._to_device(self.samp_top_k),
-                presence_penalty=self._to_device(self.samp_presence),
-                frequency_penalty=self._to_device(self.samp_frequency))
-            self._d_dirty = False
-        greedy = self._all_greedy()
+    # -- the burst-depth controller (ttft_target_ms) --------------------------
+    _BURST_WALL_WINDOW = 512
+    _SLOPE_TTL = 4096
+    _EXPLORE_EVERY = 32
+
+    def _step_ms_estimate(self) -> float | None:
+        """Per-decode-step ms from the per-depth burst-wall EMAs (JAX
+        engine.py:2871-2912). wall(d) = C + d·step, so with two fresh depths
+        the slope over the two largest is the fixed-cost-free step time;
+        with one, the fitted slope if it has not expired, else wall/d (an
+        overestimate, which errs toward shallower bursts). Clamped to
+        (0, min wall/d]. Entries older than ``_BURST_WALL_WINDOW`` samples
+        sit out (the newest stays if all are stale)."""
+        w = self._burst_walls
+        if not w:
+            return None
+        stamp = self._burst_wall_stamp
+        fresh = {d: ms for d, ms in w.items()
+                 if self._burst_wall_n - stamp.get(d, self._burst_wall_n)
+                 <= self._BURST_WALL_WINDOW}
+        if not fresh:
+            d = max(w, key=lambda k: stamp.get(k, 0))
+            fresh = {d: w[d]}
+        w = fresh
+        ub = min(ms / d for d, ms in w.items())
+        if len(w) >= 2:
+            d1, d2 = sorted(w)[-2:]
+            step = (w[d2] - w[d1]) / (d2 - d1)
+            if step > 0:
+                self._fit_slope = min(step, ub)
+                self._fit_stamp = self._burst_wall_n
+                return self._fit_slope
+        if (self._fit_slope is not None
+                and self._burst_wall_n - self._fit_stamp <= self._SLOPE_TTL):
+            return min(self._fit_slope, ub)
+        return ub
+
+    def _fixed_cost_ms(self) -> float | None:
+        """The per-burst fixed cost C of wall(d) = C + d·step, read off the
+        freshest wall with the fitted slope (a diagnostic; None once the
+        slope has expired)."""
+        if (self._fit_slope is None or not self._burst_walls
+                or self._burst_wall_n - self._fit_stamp > self._SLOPE_TTL):
+            return None
+        d = max(self._burst_walls, key=lambda k:
+                self._burst_wall_stamp.get(k, 0))
+        return max(0.0, self._burst_walls[d] - d * self._fit_slope)
+
+    def _record_burst_wall(self, n_steps: int, wall: float) -> None:
+        """One steady same-depth pair's wall (ms): a lag-one call's wall
+        then covers exactly one burst at that depth. Feeds the depth's EMA,
+        the controller's input."""
+        prev_w = self._burst_walls.get(n_steps)
+        self._burst_walls[n_steps] = (
+            wall if prev_w is None else 0.8 * prev_w + 0.2 * wall)
+        self._burst_wall_n += 1
+        self._burst_wall_stamp[n_steps] = self._burst_wall_n
+
+    def _burst_depth(self, busy: bool) -> int:
+        """Depth of the next decode burst (JAX engine.py:3094-3168).
+
+        Busy (work queued or prefilling): ``decode_burst_busy``, and with a
+        TTFT target at most a QUARTER of it over the fitted step time (a
+        prefill chunk waits out one busy burst), snapped down to a captured
+        depth or to 1. Idle: ``decode_burst``, and with a target at most
+        HALF of it over the step time (an arriving request waits out the
+        burst in flight), snapped down to a captured depth; every
+        ``_EXPLORE_EVERY`` idle bursts a steady pair one rung deeper keeps a
+        second depth fresh for the fit. Until a wall is measured, the
+        configured depth (the first bursts are the measurement)."""
+        if busy:
+            # A busy interleave splits an exploration pair: its second
+            # burst would record nothing. Cancel it.
+            self._explore_pending = 0
+            pick = self.decode_burst_busy
+            if self.ttft_target_ms > 0:
+                est = self._step_ms_estimate()
+                if est:
+                    cap = 0.25 * self.ttft_target_ms / est
+                    if cap < pick:
+                        fitting = [d for d in self._burst_depths
+                                   if d <= cap]
+                        pick = max(fitting) if fitting else 1
+                        self._busy_clamps += 1
+            self._last_burst_depth = pick
+            self._depth_hist[pick] = self._depth_hist.get(pick, 0) + 1
+            return pick
+        pick = self.decode_burst
+        if self.ttft_target_ms > 0:
+            est = self._step_ms_estimate()
+            if est:
+                cap = 0.5 * self.ttft_target_ms / est
+                fitting = [d for d in self._burst_depths if d <= cap]
+                pick = (min(max(fitting), self.decode_burst) if fitting
+                        else self._burst_depths[0])
+            if self._explore_pending > 0 and self._explore_depth > pick:
+                self._explore_pending -= 1
+                pick = self._explore_depth
+            else:
+                self._explore_pending = 0
+                self._idle_burst_i += 1
+                if pick < self.decode_burst and \
+                        self._idle_burst_i % self._EXPLORE_EVERY == 0:
+                    deeper = [d for d in self._burst_depths
+                              if pick < d <= self.decode_burst]
+                    if deeper:
+                        self._explore_depth = deeper[0]
+                        self._explore_pending = 1
+                        pick = self._explore_depth
+        self._last_burst_depth = pick
+        self._depth_hist[pick] = self._depth_hist.get(pick, 0) + 1
+        return pick
+
+    # -- the decode step (worker thread) ---------------------------------------
+    def _decode_attention(self):
+        """The decode attention over the static page table (paged) or the
+        contiguous cache, with the model's window."""
         window = self.model_cfg.sliding_window
-        attn = (make_paged_attention_fn(self._device_table(), window,
-                                        self.kv_ppb) if self.paged
-                else make_cache_attention_fn(window=window))
-        tokens, lengths, active = self._d_tokens, self._d_lengths, \
-            self._d_active
+        if self.paged:
+            return make_paged_attention_fn(self._d_table, window, self.kv_ppb)
+        return make_cache_attention_fn(window=window)
+
+    def _decode_body(self, n_steps: int, greedy: bool) -> torch.Tensor:
+        """``n_steps`` chained decode steps over the static buffers: what a
+        decode graph captures, and what runs eagerly on the CPU and for
+        synchronous bursts. Reads tokens, lengths, active, the sampling
+        vectors, the penalty counts and the page table; writes the KV cache
+        in place; returns the [n, B] token block; its last ops write the
+        final tokens and lengths back into the input buffers."""
+        attn = self._decode_attention()
+        tokens, lengths, active = (self._d_tokens, self._d_lengths,
+                                   self._d_active)
         out = []
         for _ in range(n_steps):
             if not greedy:
-                self._d_counts[torch.arange(self.B, device=self.device),
-                               tokens] += active.int()
-            logits, self.cache = self._forward(
+                # Penalty counts: each step's INPUT token.
+                self._d_counts[self._slot_ids, tokens] += active.int()
+            logits, cache = self._forward(
                 self.params, self.model_cfg, tokens[:, None], lengths,
                 self.cache, attention_fn=attn, active=active)
+            if cache is not self.cache:
+                raise RuntimeError("the decode step must update the KV "
+                                   "cache in place")
             if greedy:
                 tokens = torch.argmax(logits[:, 0, :], dim=-1)
             else:
@@ -743,13 +952,108 @@ class InferenceEngine:
                                 counts=self._d_counts)
             lengths = torch.where(active, lengths + 1, lengths)
             out.append(tokens)
-            self.decode_steps += 1
-        self._d_tokens, self._d_lengths = tokens, lengths
-        host = torch.stack(out).cpu().numpy()
-        # Mirror the device-side advance on the host.
+        block = torch.stack(out)
+        self._d_tokens.copy_(tokens)
+        self._d_lengths.copy_(lengths)
+        return block
+
+    @torch.no_grad()
+    def _capture(self, n_steps: int, greedy: bool) -> None:
+        """Capture the (depth, greedy) decode graph. Its eager warm-up runs
+        with every slot inactive (their writes land on the trash page or a
+        row's never-read tail, their counts add 0), and the tokens, lengths
+        and active buffers are put back after it."""
+        saved = [t.clone() for t in (self._d_tokens, self._d_lengths,
+                                     self._d_active)]
+        self._d_active.zero_()
+        self._graphs.capture(self._decode_body, n_steps, greedy)
+        for dst, src in zip((self._d_tokens, self._d_lengths,
+                             self._d_active), saved):
+            dst.copy_(src)
+
+    def _dispatch(self, n_steps: int, greedy: bool) -> torch.Tensor:
+        """Launch one pipelined burst: on the card the replay of its graph,
+        captured at build, on the CPU the body run eagerly. Returns the
+        device token block."""
+        if self._graphs is None:
+            return self._decode_body(n_steps, greedy)
+        return self._graphs.replay(n_steps, greedy)
+
+    def _upload_slot_state(self) -> None:
+        """The host slot mirrors into the static buffers, in place."""
+        for dst, src in ((self._d_tokens, self.last_token),
+                         (self._d_lengths, self.lengths),
+                         (self._d_active, self.active),
+                         *zip(self._d_samp, (
+                             self.samp_temperature, self.samp_top_p,
+                             self.samp_top_k, self.samp_presence,
+                             self.samp_frequency))):
+            upload(dst, src)
+        self._d_dirty = False
+
+    def _flush_pending(self) -> list[np.ndarray]:
+        """Fetch the burst in flight (if any) ahead of the next dispatch."""
+        entry, self._pending = self._pending, None
+        if entry is not None:
+            self.flushes += 1
+        return self._flush_entry(entry)
+
+    def _flush_entry(self, entry) -> list[np.ndarray]:
+        """A dispatched burst's per-step [B] token arrays, in order, with
+        -1 for slots released (or re-admitted) since its dispatch; syncs
+        the host ``last_token`` mirror of the slots that survived."""
+        if entry is None:
+            return []
+        handle, n, active_snap, epoch_snap = entry
+        host = LagOneFetch.wait(handle)                  # [n, B]
+        live = active_snap & (epoch_snap == self._slot_epoch)
+        self.last_token[live] = host[-1][live]
+        if not live.all():
+            host[:, ~live] = -1
+        return [host[i] for i in range(n)]
+
+    @torch.no_grad()
+    def _decode_burst(self, n_steps: int) -> list[np.ndarray]:
+        """Run ``n_steps`` chained decode steps (JAX engine.py:3170-3330).
+        A depth in ``_burst_depths`` above 1 runs LAG-ONE pipelined: this
+        call dispatches burst N (one graph replay on the card), starts its
+        pinned copy to the host, and returns burst N-1's tokens. Other
+        depths flush the burst in flight, then run synchronously. Returns
+        host token arrays in generation order (possibly the previous
+        burst's; two bursts' worth when a flush was forced)."""
+        pre: list[np.ndarray] = []
+        if self._d_dirty:
+            # The upload reads the host last_token mirror, which the burst
+            # in flight updates: it lands first.
+            pre += self._flush_pending()
+            self._upload_slot_state()
+        if self.paged:
+            self._device_table()
+        greedy = self._all_greedy()
+        if n_steps > 1 and n_steps in self._burst_depths:
+            t0 = time.monotonic()
+            handle = self._fetch.start(self._dispatch(n_steps, greedy))
+            prev, self._pending = self._pending, (
+                handle, n_steps, self.active.copy(), self._slot_epoch.copy())
+            # The host length mirror advances at DISPATCH: the scheduler's
+            # caps must see device-true lengths.
+            self.lengths[self.active] += n_steps
+            self.decode_steps += n_steps
+            out = pre + self._flush_entry(prev)
+            if prev is not None and prev[1] == n_steps:
+                # Steady same-depth pair: this call's wall covers exactly
+                # one burst at this depth. Depth changes record nothing.
+                self._record_burst_wall(
+                    n_steps, 1000.0 * (time.monotonic() - t0))
+            return out
+
+        pre += self._flush_pending()
+        host = self._decode_body(n_steps, greedy).cpu().numpy()
+        self.sync_bursts += 1
+        self.decode_steps += n_steps
         self.last_token[self.active] = host[-1][self.active]
         self.lengths[self.active] += n_steps
-        return [host[i] for i in range(n_steps)]
+        return pre + [host[i] for i in range(n_steps)]
 
     # -- emission / lifecycle (event-loop thread only) ------------------------
     def _emit_token(self, req: GenRequest) -> None:
@@ -841,6 +1145,7 @@ class InferenceEngine:
             self.active[req.slot] = False
             self.lengths[req.slot] = 0
             self._free_slots.append(req.slot)
+            self._slot_epoch[req.slot] += 1
             self._d_dirty = True
             if self.allocator is not None:
                 self.allocator.release(req.slot)
@@ -860,7 +1165,31 @@ class InferenceEngine:
             "prefill_calls": self.prefill_calls,
             "prefill_one_token_calls": self.prefill_one_token_calls,
             "decode_steps": self.decode_steps,
+            "sync_bursts": self.sync_bursts,
+            "flushes": self.flushes,
+            "graphs_captured": (0 if self._graphs is None
+                                else len(self._graphs.graphs)),
+            "graph_replays": (0 if self._graphs is None
+                              else self._graphs.replays),
+            "burst_busy_clamps": self._busy_clamps,
         }
+        if self._last_burst_depth:
+            out["burst_depth_last"] = self._last_burst_depth
+        # Burst-depth controller diagnostics (ttft_target_ms): fitted step
+        # time, per-burst fixed cost, where bursts ran, and the walls.
+        if self.ttft_target_ms > 0:
+            est = self._step_ms_estimate()
+            if est is not None:
+                out["burst_step_ms_fit"] = round(est, 3)
+            c = self._fixed_cost_ms()
+            if c is not None:
+                out["burst_fixed_cost_ms"] = round(c, 1)
+            if self._depth_hist:
+                out["burst_depth_hist"] = dict(
+                    sorted(self._depth_hist.items()))
+            out["burst_walls_ms"] = {
+                d: round(ms, 1)
+                for d, ms in sorted(self._burst_walls.items())}
         if self.kv_quant:
             out["kv_quant"] = self.kv_quant
         if self.allocator is not None:

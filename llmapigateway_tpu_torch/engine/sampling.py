@@ -5,7 +5,9 @@ Each row of a continuous batch carries its own temperature/top-p/top-k and
 penalties; greedy is temperature == 0, selected per row. Random draws come
 from an explicit ``torch.Generator`` (``jax.random`` keys have no PyTorch
 equivalent, so draws differ between the packages — the kept candidate sets
-and every greedy row do not).
+and every greedy row do not). A draw is the exponential race
+(:func:`draw_tokens`), which reads nothing back to the host, so a CUDA graph
+can capture it.
 """
 from __future__ import annotations
 
@@ -71,16 +73,29 @@ def candidate_logits(logits: torch.Tensor,
     return torch.where(topk_mask & topp_mask, scaled, float("-inf"))
 
 
+def draw_tokens(probs: torch.Tensor,
+                generator: torch.Generator) -> torch.Tensor:
+    """One token per row with probability ``probs [B, V]``, by the
+    exponential race ``argmax(p / E)``, ``E ~ Exp(1)`` per entry: the method
+    of ``torch.multinomial(probs, 1)`` itself (same draws from the same
+    generator state), without its checks that read the device on the host,
+    which a CUDA graph cannot capture. ``E`` is kept above 0, so an entry of
+    probability 0 is never drawn."""
+    e = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / e.clamp_(min=torch.finfo(e.dtype).tiny),
+                        dim=-1)
+
+
 def sample(logits: torch.Tensor, params: SamplingParams,
            generator: torch.Generator,
            counts: torch.Tensor | None = None) -> torch.Tensor:
     """Sample next tokens. logits [B, V] fp32 → tokens [B] int64.
     Penalties (if ``counts`` given) shift logits BEFORE the greedy argmax,
-    so temperature-0 requests get the penalized argmax."""
+    so temperature-0 requests get the penalized argmax. Every row draws and
+    temperature-0 rows take the argmax, as in the JAX sampler: nothing is
+    read back to the host, so a decode graph can capture it."""
     logits = apply_penalties(logits, counts, params)
     greedy = torch.argmax(logits, dim=-1)
-    if not bool(torch.any(params.temperature > 0)):
-        return greedy                      # no row draws: skip the vocab sort
     probs = torch.softmax(candidate_logits(logits, params), dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    sampled = draw_tokens(probs, generator)
     return torch.where(params.temperature > 0, sampled, greedy)

@@ -29,6 +29,11 @@ passed the optional rungs are skipped and named in
 2. ``--eight-b``: llama-3-8b at bf16 weights with int8 KV (the root
    bench's north-star rung quantizes the weights too, which the port does
    not yet), contiguous with TTFT, then paged;
+   ``--ttft-target MS``: that arm's engine (the headline preset's without
+   ``--eight-b``) built with ``ttft_target_ms`` — every burst depth's
+   decode graph captured at build — then decode tok/s through the real
+   scheduler, TTFT p50/p95 under load and the burst-depth controller's
+   ``burst_*`` stats (the root bench's adaptive-TTFT leg);
 3. ``--shared-prefix``: cold against warm TTFT on requests that share a
    ``--shared-prefix-len``-token prefix, with the proof that prefill was
    skipped taken from the engine's counters (prefill calls per request,
@@ -38,9 +43,9 @@ passed the optional rungs are skipped and named in
 6. ``--second-preset``: a mid-size preset (llama-3b-class).
 
 The root bench's other rungs are refused here by naming the port-queue item
-that brings them (``--quant-rung``, ``--spec-*``, ``--ttft-target``,
-``--disagg-ab``, ``--flight-ab``, ``--annot-ab``, ``--failover-ab``); its
-TPU chip lease and backend probe have no counterpart.
+that brings them (``--quant-rung``, ``--spec-*``, ``--disagg-ab``,
+``--flight-ab``, ``--annot-ab``, ``--failover-ab``); its TPU chip lease and
+backend probe have no counterpart.
 
 Runs on the card (``--device cuda``, the default; without a card it prints
 the failure line and exits 2). ``--device cpu`` runs the same code on the
@@ -80,7 +85,6 @@ REFUSED = {
     "spec_draft": "speculative decoding",
     "spec_ladder": "speculative decoding",
     "spec_mixed": "speculative decoding",
-    "ttft_target": "compiled, pipelined decode step",
     "disagg_ab": "disaggregation, supervision, observability",
     "flight_ab": "disaggregation, supervision, observability",
     "annot_ab": "disaggregation, supervision, observability",
@@ -221,12 +225,15 @@ def fill_and_time_decode(engine, args, steps: int | None = None) -> dict:
         engine._decode_burst(tail)
     for _ in range(max(0, args.warmup - burst - tail) // burst):
         engine._decode_burst(burst)
+    engine._flush_pending()
     t0 = time.monotonic()
     done = 0
     while done < steps:
         n = min(burst, steps - done)
-        engine._decode_burst(n)         # ends in a host fetch (synchronous)
+        engine._decode_burst(n)         # lag-one: returns the burst before
         done += n
+    # The window closes once the last burst's tokens are on the host.
+    engine._flush_pending()
     decode_s = time.monotonic() - t0
     tok_s = B * steps / decode_s
     note(f"[bench] decode timed: {steps} steps x{B} slots -> "
@@ -259,6 +266,7 @@ def fill_and_time_decode(engine, args, steps: int | None = None) -> dict:
 
 def reset_slots(engine) -> None:
     """Return a bench-filled engine to a clean scheduler state."""
+    engine._flush_pending()
     engine.lengths[:] = 0
     engine.active[:] = False
     engine.last_token[:] = 0
@@ -317,6 +325,69 @@ def measure_ttft_under_load(engine, args) -> dict:
                 "ttft_probes": len(arr), "ttft_load_slots": len(bg)}
 
     return asyncio.run(run())
+
+
+def scheduler_throughput(engine, args, n_tokens: int = 120) -> float:
+    """Steady decode tok/s through the real scheduler loop (admission,
+    bursts, the burst-depth controller) with distinct prompts: one warm
+    request, then a full batch timed from all slots decoding to the end
+    (the root bench's ``scheduler_throughput``)."""
+    rng = np.random.default_rng(9)
+    V = engine.model_cfg.vocab_size
+    n_tokens = max(2, min(n_tokens, engine.S - args.prompt_len - 8))
+
+    async def drain(r):
+        async for _ in engine.stream(r):
+            pass
+
+    async def run() -> float:
+        await engine.start()
+        warm = GenRequest(
+            prompt_ids=rng.integers(0, V, args.prompt_len).tolist(),
+            max_tokens=2 * max(1, engine.decode_burst), temperature=0.0)
+        await engine.submit(warm)
+        await drain(warm)
+        reqs = [GenRequest(
+            prompt_ids=rng.integers(0, V, args.prompt_len).tolist(),
+            max_tokens=n_tokens, temperature=0.0) for _ in range(engine.B)]
+        for r in reqs:
+            await engine.submit(r)
+        for r in reqs:
+            await _first_token(r)
+        t0 = time.monotonic()
+        await asyncio.gather(*(drain(r) for r in reqs))
+        dt = time.monotonic() - t0
+        await engine.stop()
+        return sum(len(r.generated) - 1 for r in reqs) / dt
+
+    return asyncio.run(run())
+
+
+def ttft_target_rung(args, device) -> dict:
+    """The burst-depth controller under load: the llama-3-8b arm's engine
+    (``--eight-b``; else the headline preset's) with ``ttft_target_ms``,
+    every depth's decode graph captured at build, measured through the real
+    scheduler: decode tok/s, TTFT p50/p95 under load, and the controller's
+    ``burst_*`` stats with the engine's graph and pipeline counts."""
+    rargs = argparse.Namespace(**vars(args))
+    preset, kv_quant = args.preset, ""
+    if args.eight_b:
+        preset, kv_quant = EIGHT_B["preset"], "int8"
+        rargs.seq, rargs.batch = EIGHT_B["seq"], EIGHT_B["batch"]
+        rargs.prompt_len = min(args.prompt_len, 128)
+    engine, init_s = build_engine(rargs, device, "contiguous", preset=preset,
+                                  kv_quant=kv_quant,
+                                  ttft_target_ms=args.ttft_target)
+    sched_tok_s = scheduler_throughput(engine, rargs)
+    t = measure_ttft_under_load(engine, rargs)
+    diag = {k: v for k, v in engine.stats().items()
+            if k.startswith("burst_") or k in (
+                "graphs_captured", "graph_replays", "sync_bursts",
+                "flushes")}
+    return {"target_ms": args.ttft_target, "preset": preset,
+            "kv_quant": kv_quant or "bf16", "batch": rargs.batch,
+            "init_s": init_s, "scheduler_tok_s": round(sched_tok_s, 1),
+            **t, **diag}
 
 
 def shared_prefix_rung(args, device) -> dict:
@@ -433,6 +504,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--shared-prefix", type=int, default=1,
                     help="shared-prefix rung: cold vs warm TTFT through "
                          "the prefix cache (0 disables)")
+    ap.add_argument("--ttft-target", type=float, default=0.0,
+                    help="ttft_target_ms of the burst-depth controller rung "
+                         "(the root bench's 200; 0 disables)")
     ap.add_argument("--shared-prefix-len", type=int, default=512)
     ap.add_argument("--shared-prefix-tail", type=int, default=32)
     ap.add_argument("--shared-prefix-warm", type=int, default=6)
@@ -534,6 +608,15 @@ def main(argv=None) -> dict:
             if r is not None:
                 r8[layout] = r
         extra["eight_b"] = r8
+
+    # 2b. The burst-depth controller at a TTFT target.
+    if args.ttft_target > 0 and not over_budget("ttft_target"):
+        r = guarded("ttft_target", lambda: ttft_target_rung(args, device))
+        if r is not None:
+            extra["ttft_target"] = r
+            note(f"[bench] ttft_target {args.ttft_target} ms: TTFT p50 "
+                 f"{r['ttft_p50_ms']} ms, {r['scheduler_tok_s']} tok/s "
+                 f"through the scheduler")
 
     # 3. Shared prefix through the prefix cache.
     if args.shared_prefix and not over_budget("shared_prefix"):

@@ -6,10 +6,13 @@ Builds the port's ``InferenceEngine`` as the JAX tool builds its own
 128, ``decode_burst`` = ``--burst``, ``--kv contiguous|paged``), prefills
 every slot with a 128-token prompt through ``_exec_prefill``, then times:
 
-1. whole ``_decode_burst`` calls (host clock, tokens fetched);
-2. the same greedy steps run through the engine's ``_forward``, split into
-   host enqueue (up to the last launch) and the final fetch (to the sync)
-   — the counterpart of the JAX tool's dispatch/fetch split;
+1. whole ``_decode_burst`` calls (host clock): under lag-one pipelining
+   each call dispatches one burst and fetches the one before it, so its
+   wall is one steady pipelined burst;
+2. the same greedy burst the engine dispatches (on the card the replay of
+   its decode graph, on the CPU the same body run eagerly), split into
+   dispatch (up to the last launch) and the fetch of its tokens (to the
+   sync) — the JAX tool's dispatch/fetch split;
 3. chained bursts with one fetch at the end.
 
 The paged engine keeps the default ``prefix_cache: true``, as the JAX
@@ -64,24 +67,6 @@ def prefill_all(engine: InferenceEngine) -> None:
     engine._d_dirty = True
 
 
-def raw_burst(engine: InferenceEngine, n_steps: int, attn):
-    """``n_steps`` greedy steps through the engine's ``_forward`` on its
-    device state (the body of ``_decode_burst`` for all-greedy slots,
-    without the host mirror). Returns the stacked device tokens [n, B]."""
-    tokens, lengths = engine._d_tokens, engine._d_lengths
-    active = engine._d_active
-    out = []
-    for _ in range(n_steps):
-        logits, engine.cache = engine._forward(
-            engine.params, engine.model_cfg, tokens[:, None], lengths,
-            engine.cache, attention_fn=attn, active=active)
-        tokens = torch.argmax(logits[:, 0, :], dim=-1)
-        lengths = torch.where(active, lengths + 1, lengths)
-        out.append(tokens)
-    engine._d_tokens, engine._d_lengths = tokens, lengths
-    return torch.stack(out)
-
-
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -129,27 +114,22 @@ def main(argv=None) -> dict:
             note(f"_decode_burst({burst}) #{i}: {1e3 * dt:.1f} ms "
                  f"({1e3 * dt / burst:.2f} ms/step)")
 
-        # The same greedy steps on the engine's own forward: host enqueue
-        # (to the last launch) vs the fetch (to the sync).
-        window = engine.model_cfg.sliding_window
-        if engine.paged:
-            from ..ops.paged_attention import make_paged_attention_fn
-            attn = make_paged_attention_fn(engine._device_table(), window,
-                                           engine.kv_ppb)
-        else:
-            from ..ops.flash_attention import make_cache_attention_fn
-            attn = make_cache_attention_fn(window=window)
+        # The burst in flight lands first; then the same greedy burst the
+        # engine dispatches (``_dispatch``: the graph's replay on the card,
+        # the eager body on the CPU; no host mirror, no lag-one fetch):
+        # dispatch (to the last launch) vs the fetch (to the sync).
+        engine._flush_pending()
         res["raw"] = []
         for i in range(3):
             _sync(device)
             t0 = time.monotonic()
-            toks = raw_burst(engine, burst, attn)
+            toks = engine._dispatch(burst, True)
             t1 = time.monotonic()
             toks.cpu()
             t2 = time.monotonic()
             res["raw"].append({"enqueue_ms": 1e3 * (t1 - t0),
                                "fetch_ms": 1e3 * (t2 - t1)})
-            note(f"raw burst #{i}: enqueue {1e3 * (t1 - t0):.1f} ms, fetch "
+            note(f"raw burst #{i}: dispatch {1e3 * (t1 - t0):.1f} ms, fetch "
                  f"{1e3 * (t2 - t1):.1f} ms, total "
                  f"{1e3 * (t2 - t0) / burst:.2f} ms/step")
 
@@ -157,7 +137,7 @@ def main(argv=None) -> dict:
         _sync(device)
         t0 = time.monotonic()
         for _ in range(n):
-            toks = raw_burst(engine, burst, attn)
+            toks = engine._dispatch(burst, True)
         toks.cpu()
         dt = time.monotonic() - t0
         res["chained_ms_per_step"] = 1e3 * dt / (n * burst)

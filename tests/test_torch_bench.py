@@ -52,7 +52,6 @@ def test_cpu_run_prints_the_contract_line(capsys):
     ("--spec-draft", "speculative decoding"),
     ("--spec-ladder", "speculative decoding"),
     ("--spec-mixed", "speculative decoding"),
-    ("--ttft-target", "compiled, pipelined decode step"),
     ("--disagg-ab", "disaggregation, supervision, observability"),
     ("--flight-ab", "disaggregation, supervision, observability"),
     ("--annot-ab", "disaggregation, supervision, observability"),
@@ -61,6 +60,28 @@ def test_cpu_run_prints_the_contract_line(capsys):
 def test_unported_rungs_are_refused(flag, item):
     with pytest.raises(ValueError, match=f"{flag}.*ROADMAP.md.*{item}"):
         bench.main(TINY + [flag, "1"])
+
+
+def test_ttft_target_rung_runs_the_controller_through_the_scheduler(
+        capsys):
+    """``--ttft-target``: the arm's engine with ``ttft_target_ms``, decode
+    tok/s through the real scheduler, TTFT under load, and the
+    controller's own stats (where the bursts ran, the walls it measured);
+    on the CPU no graph is captured and every burst runs eagerly."""
+    result = bench.main(TINY + ["--ttft-target", "100", "--layout",
+                                "contiguous", "--kv", "bf16",
+                                "--shared-prefix", "0"])
+    extra = result["extra"]
+    assert "errors" not in extra, extra.get("errors")
+    r = extra["ttft_target"]
+    assert r["target_ms"] == 100.0 and r["preset"] == "tiny-test"
+    assert r["scheduler_tok_s"] > 0 and r["ttft_probes"] == 3
+    assert 0 < r["ttft_p50_ms"] <= r["ttft_p95_ms"]
+    # Depths come from the controller's ladder (4, 3, 2, 1 at --burst 4).
+    assert r["burst_depth_hist"] and set(r["burst_depth_hist"]) <= {1, 2, 3,
+                                                                     4}
+    assert isinstance(r["burst_walls_ms"], dict)
+    assert r["graphs_captured"] == 0 and r["graph_replays"] == 0
 
 
 def test_the_card_is_the_default_device(capsys):

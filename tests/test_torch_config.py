@@ -49,7 +49,6 @@ def _files(tmp_path, where, patch):
 BREAKERS = "breakers and deadlines"
 CASES = [
     # Refused: applied by the JAX engine or router to a local provider.
-    ("engine", {"ttft_target_ms": 200.0}, "compiled, pipelined decode step"),
     ("engine", {"supervisor": {"watchdog_ms": 500.0}},
      "disaggregation, supervision, observability"),
     ("engine", {"supervisor": {"max_restarts": 1}},
@@ -67,6 +66,9 @@ CASES = [
     # no meaning off the TPU, or the defaults spelled out.
     ("engine", {}, None),
     ("engine", {"ttft_target_ms": 0.0, "supervisor": {}}, None),
+    # The burst-depth controller, ported with the compiled, pipelined
+    # decode step.
+    ("engine", {"ttft_target_ms": 200.0}, None),
     ("engine", {"compilation_cache_dir": "xla-cache"}, None),
     ("engine", {"debug_nans": True}, None),
     ("engine", {"prewarm_sampler_variants": False}, None),

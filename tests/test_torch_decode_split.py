@@ -33,6 +33,7 @@ from llmapigateway_tpu.ops import paged_attention as jpa
 from llmapigateway_tpu_torch.ops import _kernels
 from llmapigateway_tpu_torch.ops import flash_attention as tfa
 from llmapigateway_tpu_torch.ops import paged_attention as tpa
+from test_torch_engine import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5
 TILE = _kernels.TILE_K

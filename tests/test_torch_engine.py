@@ -39,6 +39,20 @@ from llmapigateway_tpu_torch.ops.paged_attention import (
     PagedKVCache, make_paged_attention_fn)
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch while a module runs (then the thread
+    count it found): the port's CPU tests run small tensors, and six pytest
+    workers each running torch's default of one thread per core, beside
+    XLA's own pools, spend the cores waiting on each other (the heavy port
+    files ran 25% longer so). Import it into a test module to apply it
+    there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 GEOMETRY = dict(preset="tiny-test", kv_layout="paged", kv_page_size=16,
                 prefix_cache=False, max_batch_size=4, max_seq_len=256,
                 prefill_chunk=32, dtype="float32")

@@ -20,6 +20,7 @@ from llmapigateway_tpu.models import llama as jllama
 from llmapigateway_tpu.ops import flash_attention as jfa
 from llmapigateway_tpu_torch.models import llama as tllama
 from llmapigateway_tpu_torch.ops import flash_attention as tfa
+from test_torch_engine import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5
 KV, Dh, S, BLOCK = 2, 16, 32, 8

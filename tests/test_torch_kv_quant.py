@@ -17,6 +17,7 @@ from llmapigateway_tpu.ops import paged_attention as jpa
 from llmapigateway_tpu_torch.models import llama as tllama
 from llmapigateway_tpu_torch.models.convert import kv_cache_from_jax
 from llmapigateway_tpu_torch.ops import paged_attention as tpa
+from test_torch_engine import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5
 KV, Dh = 2, 16

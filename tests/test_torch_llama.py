@@ -22,6 +22,7 @@ from llmapigateway_tpu_torch.models.config import RopeScaling, get_preset
 from llmapigateway_tpu_torch.models.convert import params_from_jax
 from llmapigateway_tpu_torch.ops.paged_attention import (
     PagedKVCache, make_paged_attention_fn)
+from test_torch_engine import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -28,6 +28,7 @@ from llmapigateway_tpu_torch.config.schemas import LocalEngineConfig
 from llmapigateway_tpu_torch.engine.engine import GenRequest, InferenceEngine
 from llmapigateway_tpu_torch.engine.paged import PageAllocator
 from llmapigateway_tpu_torch.ops import paged_attention as tpa
+from test_torch_engine import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5
 PPB = 4                    # tables packed for 4; 1, 2 and 4 all read them

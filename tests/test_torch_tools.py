@@ -130,7 +130,10 @@ def test_full_step_gives_the_engine_greedy_tokens():
     lengths = torch.from_numpy(engine.lengths.copy())
     active = torch.ones(2, dtype=torch.bool)
 
-    want = np.stack(engine._decode_burst(6))
+    # Lag-one: the burst's tokens come back at the next dispatch, or here
+    # from the flush.
+    assert engine._decode_burst(6) == []
+    want = np.stack(engine._flush_pending())
     step = profile_decode.make_step(engine.model_cfg, "full",
                                     make_cache_attention_fn())
     samp = profile_decode.sampling_params(2, "cpu", temperature=0.0)

@@ -37,7 +37,7 @@ from llmapigateway_tpu_torch.models.convert import params_from_jax
 from llmapigateway_tpu_torch.ops import flash_attention as tfa
 from llmapigateway_tpu_torch.ops import paged_attention as tpa
 from test_torch_engine import (assert_jax_model_greedy, load_jax_params,
-                               reference_env)
+                               one_torch_thread, reference_env)  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 ATOL = RTOL = 1e-5
