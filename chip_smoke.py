@@ -117,12 +117,27 @@ Phases, each printed as JSON lines:
              that must evict for the fifth. Cold and warm TTFT are
              information only. Kernels #1 and #2 over aliased page tables
              (the cache's shared blocks) are held in the kernel phase.
-9. bench   — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
+9. gateway — the gateway around the engine: a loopback aiohttp stub
+             upstream (written here) as three ``remote_http`` providers
+             (failing: HTTP 500, then an in-band error at 200; healthy;
+             slow) and a local llama-3-8b at full width and depth (paged,
+             bf16) behind one app. A chain [failing stub with one retry,
+             local] answers the local text; the stub is hit twice a request
+             until its breaker opens, then never. ``rotate_models`` over
+             [healthy stub, local] alternates as ``RotationDB`` says. A
+             ``timeout_ms`` below the slow stub's delay answers 504 with the
+             stub alone or first, and the local answer with the stub
+             second. ``/v1/api/usage-records`` holds one row per served
+             request with its usage block's provider and token counts,
+             ``/v1/api/health/providers`` the failing stub's breaker open;
+             #1/#2 ran once per layer per forward. Walls, and the added cost
+             of a failed remote attempt before the local answer.
+10. bench  — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
              32 steps, 3 TTFT probes, its shared-prefix rung and its
              ``--ttft-target 200`` rung: its JSON line, a positive value,
              warm requests that ran fewer prefill calls than the cold one,
              and the controller rung served through decode graphs.
-10. the ``kernels`` line (decode rows with the key split ``n_split`` and
+11. the ``kernels`` line (decode rows with the key split ``n_split`` and
    workspace bytes of their timed launch), the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
@@ -1594,7 +1609,8 @@ class _Gateway:
                        for name, cfg in self.engines.items()], f)
         first = next(iter(self.engines))
         self.app = build_app(
-            Settings(fallback_provider=first, config_dir=d),
+            Settings(fallback_provider=first, config_dir=d,
+                     db_dir=os.path.join(d, "db")),
             loader=ConfigLoader(d, first),
             local_factory=functools.partial(make_local_provider,
                                             device="cuda"))
@@ -2117,7 +2133,358 @@ def prefix_phase(torch, ks, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the port's bench tool, short
+# Phase 9: the gateway around the engine: remote upstream, then the card
+# ---------------------------------------------------------------------------
+
+# The local target: llama-3-8b at full width and depth, paged bf16, as the
+# serve phase's paged-bf16 run (prefix cache off, so a repeated prompt is
+# prefilled again and streams the same text).
+GATEWAY_ENGINE = {**LLAMA, **PAGED, "kv_pages_per_block": 1,
+                  "prefix_cache": False, "kv_quant": ""}
+GATEWAY_MAX_TOKENS = 16
+GATEWAY_PROMPT = "route this request through the gateway's fallback chain"
+GATEWAY_CLIENT_KEY = "smoke-client"
+# The failing stub's breaker opens at its 4th failure: the 2nd failover
+# request's retry. The first two requests then cost 2 stub hits each, the
+# rest none.
+STUB_BREAKER = {"min_requests": 4, "failure_threshold": 0.5,
+                "window_s": 600.0, "cooldown_s": 600.0}
+GATEWAY_FAILOVER_HITS = [2, 2, 0, 0]
+GATEWAY_ROTATIONS = 4
+STUB_SLOW_S = 2.0
+GATEWAY_TIMEOUT_MS = 1000
+
+
+class _StubUpstream:
+    """A loopback OpenAI-compatible upstream (aiohttp's server, nothing of
+    the tests): ``/ok`` answers JSON or SSE with a usage block, ``/fail``
+    answers its odd requests with HTTP 500 and its even ones with an
+    in-band error at HTTP 200, ``/slow`` answers after STUB_SLOW_S."""
+
+    TOKENS = ["stub ", "answer"]
+    USAGE = {"prompt_tokens": 5, "completion_tokens": 2, "total_tokens": 7}
+
+    def __init__(self) -> None:
+        self.hits = {"ok": 0, "fail": 0, "slow": 0}
+
+    async def chat(self, request):
+        from aiohttp import web
+        kind = request.match_info["kind"]
+        self.hits[kind] += 1
+        body = await request.json()
+        stream = bool(body.get("stream"))
+        if kind == "fail" and self.hits[kind] % 2:
+            return web.json_response({"error": {"message": "stub 500"}},
+                                     status=500)
+        if kind == "slow":
+            await asyncio.sleep(STUB_SLOW_S)
+        error = {"error": {"message": "stub in-band error"}}
+        if not stream:
+            if kind == "fail":
+                return web.json_response(error)
+            return web.json_response({
+                "id": "stub", "object": "chat.completion",
+                "model": body.get("model"),
+                "choices": [{"index": 0, "finish_reason": "stop",
+                             "message": {"role": "assistant",
+                                         "content": "".join(self.TOKENS)}}],
+                "usage": self.USAGE})
+        resp = web.StreamResponse(
+            headers={"Content-Type": "text/event-stream"})
+        await resp.prepare(request)
+        frames = [error] if kind == "fail" else [
+            {"id": "stub", "object": "chat.completion.chunk",
+             "choices": [{"index": 0, "delta": {"content": t},
+                          "finish_reason": None}]} for t in self.TOKENS] + [
+            {"id": "stub", "object": "chat.completion.chunk",
+             "choices": [{"index": 0, "delta": {}, "finish_reason": "stop"}],
+             "usage": self.USAGE}, "[DONE]"]
+        for frame in frames:
+            data = frame if isinstance(frame, str) else json.dumps(frame)
+            await resp.write(f"data: {data}\n\n".encode())
+        await resp.write_eof()
+        return resp
+
+
+def _gateway_config(stub_base: str) -> tuple[list, list]:
+    local = {"provider": "local", "model": GATEWAY_ENGINE["preset"]}
+    slow = {"provider": "stub-slow", "model": "stub"}
+    providers = [
+        {"stub-fail": {"baseUrl": f"{stub_base}/fail/v1", "apikey": "stub-key",
+                       "breaker": STUB_BREAKER}},
+        {"stub-ok": {"baseUrl": f"{stub_base}/ok/v1", "apikey": "stub-key"}},
+        {"stub-slow": {"baseUrl": f"{stub_base}/slow/v1",
+                       "apikey": "stub-key"}},
+        {"local": {"type": "local", "engine": GATEWAY_ENGINE}}]
+    rules = [
+        {"gateway_model_name": "gw/local", "fallback_models": [local]},
+        {"gateway_model_name": "gw/failover", "fallback_models": [
+            {"provider": "stub-fail", "model": "stub", "retry_count": 1},
+            local]},
+        {"gateway_model_name": "gw/rotate", "rotate_models": True,
+         "fallback_models": [{"provider": "stub-ok", "model": "stub"},
+                             local]},
+        # The budget is the request's: a target that spends it ends the
+        # request (504) whatever follows it in the chain.
+        {"gateway_model_name": "gw/deadline-alone",
+         "timeout_ms": GATEWAY_TIMEOUT_MS, "fallback_models": [slow]},
+        {"gateway_model_name": "gw/deadline-first",
+         "timeout_ms": GATEWAY_TIMEOUT_MS, "fallback_models": [slow, local]},
+        {"gateway_model_name": "gw/deadline-second",
+         "timeout_ms": GATEWAY_TIMEOUT_MS, "fallback_models": [local, slow]}]
+    return providers, rules
+
+
+async def _gw_post(session, port: int, model: str, stream: bool) -> dict:
+    """POST one chat completion through the gateway: status, text, usage
+    block and wall ms (the body read to its end)."""
+    body = {"model": model, "stream": stream, "temperature": 0,
+            "max_tokens": GATEWAY_MAX_TOKENS,
+            "messages": [{"role": "user", "content": GATEWAY_PROMPT}]}
+    t0 = time.monotonic()
+    async with session.post(f"http://127.0.0.1:{port}/v1/chat/completions",
+                            json=body) as resp:
+        raw = await resp.read()
+        resp_status = resp.status
+    wall_ms = 1000.0 * (time.monotonic() - t0)
+    out = {"status": resp_status, "wall_ms": wall_ms, "text": None,
+           "usage": None}
+    if resp_status != 200:
+        out["error"] = json.loads(raw)["error"]["message"][:300]
+        return out
+    if not stream:
+        data = json.loads(raw)
+        out["text"] = data["choices"][0]["message"]["content"]
+        out["usage"] = data.get("usage")
+        return out
+    from llmapigateway_tpu_torch.utils.sse import SSEParser
+    frames = list(SSEParser().feed(raw))
+    check(bool(frames) and frames[-1].is_done,
+          f"gateway {model}: SSE stream did not end in [DONE]: "
+          f"{[fr.data[:200] for fr in frames[-2:]]}")
+    objs = [fr.json for fr in frames if fr.json]
+    out["text"] = "".join((c.get("delta") or {}).get("content") or ""
+                          for o in objs for c in o.get("choices") or [])
+    usage = [o["usage"] for o in objs if "usage" in o]
+    out["usage"] = usage[-1] if usage else None
+    return out
+
+
+async def _gateway_serve(torch, ks, card: str) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from llmapigateway_tpu_torch.config.loader import ConfigLoader
+    from llmapigateway_tpu_torch.config.settings import Settings
+    from llmapigateway_tpu_torch.db.rotation import RotationDB
+    from llmapigateway_tpu_torch.ops.flash_attention import (body_name,
+                                                            reset_launches)
+    from llmapigateway_tpu_torch.providers.local import make_local_provider
+    from llmapigateway_tpu_torch.server.app import build_app
+
+    stub = _StubUpstream()
+    stub_app = web.Application()
+    stub_app.router.add_post("/{kind}/v1/chat/completions", stub.chat)
+    stub_runner = web.AppRunner(stub_app)
+    await stub_runner.setup()
+    stub_port = _free_port()
+    await web.TCPSite(stub_runner, "127.0.0.1", stub_port).start()
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    providers, rules = _gateway_config(f"http://127.0.0.1:{stub_port}")
+    with open(os.path.join(d, "providers.json"), "w") as f:
+        json.dump(providers, f)
+    with open(os.path.join(d, "models_fallback_rules.json"), "w") as f:
+        json.dump(rules, f)
+    app = build_app(Settings(fallback_provider="local", config_dir=d,
+                             db_dir=os.path.join(d, "db")),
+                    loader=ConfigLoader(d, "local"),
+                    local_factory=functools.partial(make_local_provider,
+                                                    device="cuda"))
+    runner = web.AppRunner(app)
+    await runner.setup()
+    port = _free_port()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    gw = app["gateway"]
+    try:
+        t0 = time.monotonic()
+        local = await gw.registry.get("local")
+        engine = local.engine
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        # Routing ms before the local attempt starts, per request that
+        # reaches it: failed remote attempts and breaker skips are in it,
+        # the local answer's own time is not.
+        pre_local, t_dispatch = [], [0.0]
+        dispatch, complete = gw.router.dispatch, local.complete
+
+        async def timed_dispatch(*a, **kw):
+            t_dispatch[0] = time.perf_counter()
+            return await dispatch(*a, **kw)
+
+        async def timed_complete(request, observer):
+            pre_local.append(1000.0 * (time.perf_counter() - t_dispatch[0]))
+            return await complete(request, observer)
+        gw.router.dispatch, local.complete = timed_dispatch, timed_complete
+        mc = engine.model_cfg
+        for fn in ks.all_wrappers():
+            reset_launches(fn)
+        engine.decode_steps = engine.prefill_calls = 0
+        engine.prefill_one_token_calls = 0
+        t1 = time.monotonic()
+        async with aiohttp.ClientSession(headers={
+                "Authorization": f"Bearer {GATEWAY_CLIENT_KEY}"}) as session:
+            async def post(model, stream):
+                n = len(pre_local)
+                out = await _gw_post(session, port, model, stream)
+                out["pre_local_ms"] = (pre_local[n] if len(pre_local) > n
+                                       else None)
+                return out
+            direct = [await post("gw/local", s)
+                      for s in (False, True, False, True)]
+            failover, hits = [], []
+            for i in range(len(GATEWAY_FAILOVER_HITS)):
+                before = stub.hits["fail"]
+                failover.append(await post("gw/failover", bool(i % 2)))
+                hits.append(stub.hits["fail"] - before)
+            rotation = [await post("gw/rotate", False)
+                        for _ in range(GATEWAY_ROTATIONS)]
+            deadline = {name: await post(f"gw/deadline-{name}", False)
+                        for name in ("alone", "first", "second")}
+            await asyncio.to_thread(gw.usage_recorder.flush)
+            async with session.get(f"http://127.0.0.1:{port}"
+                                   f"/v1/api/usage-records?limit=100") as r:
+                records = (await r.json())["records"]
+            async with session.get(f"http://127.0.0.1:{port}"
+                                   f"/v1/api/health/providers") as r:
+                health = (await r.json())["providers"]
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t1
+        launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
+        bodies = {fn.__name__: dict(fn.body_launches)
+                  for fn in ks.all_wrappers()}
+        steps = {"decode_steps": engine.decode_steps,
+                 "prefill_calls": engine.prefill_calls,
+                 "prefill_one_token_calls": engine.prefill_one_token_calls}
+        recorder = gw.usage_recorder.stats()
+        del engine, local, complete
+    finally:
+        await runner.cleanup()
+        await stub_runner.cleanup()
+        tmp.cleanup()
+
+    what = "gateway"
+    texts = {s: [r["text"] for r in direct if r["status"] == 200
+                 and r["text"] is not None][s::2] for s in (0, 1)}
+    check(all(r["status"] == 200 for r in direct)
+          and texts[0][0] == texts[0][1] and texts[1][0] == texts[1][1]
+          and texts[0][0] == texts[1][0],
+          f"{what}: direct local answers differ or failed: {direct}")
+    local_text = texts[0][0]
+    check(hits == GATEWAY_FAILOVER_HITS,
+          f"{what}: failing stub hits per failover request {hits}, "
+          f"expected {GATEWAY_FAILOVER_HITS} (the breaker opens after the "
+          f"second request)")
+    for i, r in enumerate(failover):
+        check(r["status"] == 200 and r["text"] == local_text,
+              f"{what}: failover request {i} did not answer the local "
+              f"text: {r}")
+    # A fresh RotationDB gives the start index of each rotated request.
+    with tempfile.TemporaryDirectory() as rd:
+        rot = RotationDB(rd)
+        starts = [rot.next_index(GATEWAY_CLIENT_KEY, "gw/rotate", 2)
+                  for _ in range(GATEWAY_ROTATIONS)]
+        rot.close()
+    rot_targets = [r["fallback_models"] for r in rules
+                   if r["gateway_model_name"] == "gw/rotate"][0]
+    want_rot = [rot_targets[i]["provider"] for i in starts]
+    served_rot = ["local" if r["text"] == local_text else
+                  "stub-ok" if r["text"] == "".join(_StubUpstream.TOKENS)
+                  else r["text"] for r in rotation]
+    check(all(r["status"] == 200 for r in rotation)
+          and served_rot == want_rot,
+          f"{what}: rotation served {served_rot}, RotationDB says "
+          f"{want_rot}")
+    check(stub.hits["ok"] == want_rot.count("stub-ok"),
+          f"{what}: healthy stub hits {stub.hits['ok']}")
+    check(deadline["alone"]["status"] == 504
+          and deadline["first"]["status"] == 504,
+          f"{what}: a slow stub past timeout_ms did not answer 504: "
+          f"{deadline}")
+    check(deadline["second"]["status"] == 200
+          and deadline["second"]["text"] == local_text,
+          f"{what}: the local target ahead of the slow stub did not answer "
+          f"inside the budget: {deadline['second']}")
+    served = ([("local", r["usage"]) for r in direct + failover]
+              + [(p, r["usage"]) for p, r in zip(served_rot, rotation)]
+              + [("local", deadline["second"]["usage"])])
+    want_rows = sorted((p, u["prompt_tokens"], u["completion_tokens"])
+                       for p, u in served)
+    got_rows = sorted((r["provider"], r["prompt_tokens"],
+                       r["completion_tokens"]) for r in records)
+    check(got_rows == want_rows,
+          f"{what}: usage records {got_rows} != served requests' usage "
+          f"blocks {want_rows}")
+    check(health["stub-fail"]["state"] == "open"
+          and health["stub-fail"]["opens"] == 1
+          and health["local"]["state"] == "closed",
+          f"{what}: provider health {health}")
+    body = body_name(mc.sliding_window, 1, False, mc.head_dim,
+                     mc.n_heads // mc.n_kv_heads)
+    check_launches(ks, what, "paged", body, mc.n_layers, steps, launches,
+                   bodies)
+
+    def pre(rows):
+        return statistics.median(r["pre_local_ms"] for r in rows)
+    # Per failed attempt: the routing time before the local attempt of a
+    # failover request whose stub was tried twice, less a direct one's.
+    failed_attempt_ms = ((pre(failover[:2]) - pre(direct))
+                         / GATEWAY_FAILOVER_HITS[0])
+    skip_ms = pre(failover[2:]) - pre(direct)
+    local_usage = [r["usage"] for r in direct + failover]
+    res = {"phase": "gateway", "card": card, "engine": GATEWAY_ENGINE,
+           "layers": mc.n_layers, "engine_build_s": build_s,
+           "wall_s": wall_s,
+           "requests": {"direct": len(direct), "failover": len(failover),
+                        "rotation": len(rotation),
+                        "deadline": len(deadline)},
+           "failover_stub_hits": hits, "stub_hits": stub.hits,
+           "rotation_served": served_rot,
+           "deadline_status": {k: v["status"] for k, v in deadline.items()},
+           "deadline_wall_ms": {k: v["wall_ms"] for k, v in deadline.items()},
+           "walls_ms": {"direct_json": [r["wall_ms"] for r in direct[0::2]],
+                        "direct_sse": [r["wall_ms"] for r in direct[1::2]],
+                        "failover": [r["wall_ms"] for r in failover],
+                        "rotation": [r["wall_ms"] for r in rotation]},
+           "pre_local_ms": {"direct": [r["pre_local_ms"] for r in direct],
+                            "failover": [r["pre_local_ms"]
+                                         for r in failover]},
+           "failed_attempt_ms": failed_attempt_ms,
+           "breaker_skip_ms": skip_ms,
+           "local_ttft_ms": [u.get("ttft_ms") for u in local_usage],
+           "local_tok_per_s": [u.get("tokens_per_sec")
+                               for u in local_usage],
+           "usage_rows": len(records), "recorder": recorder,
+           "breakers": {k: {f: v[f] for f in ("state", "opens",
+                                               "failure_rate",
+                                               "window_requests")}
+                        for k, v in health.items()},
+           "launches": launches, "body_launches": bodies, **steps,
+           "note": "walls, TTFT and tok/s are information only"}
+    emit(res)
+    return res
+
+
+def gateway_phase(torch, ks, card: str) -> dict:
+    """Phase 9: the gateway around the local engine on the card."""
+    t0 = time.monotonic()
+    out = asyncio.run(_gateway_serve(torch, ks, card))
+    _freed(torch, "gateway", t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the port's bench tool, short
 # ---------------------------------------------------------------------------
 
 def bench_phase(torch) -> dict:
@@ -2425,6 +2792,9 @@ def main(argv=()) -> int:
         t0 = time.monotonic()
         prefix_phase(torch, ks, smi)
         seconds["prefix"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        gateway_phase(torch, ks, smi)
+        seconds["gateway"] = time.monotonic() - t0
         t0 = time.monotonic()
         bench_phase(torch)
         seconds["bench"] = time.monotonic() - t0

@@ -4,14 +4,13 @@ config editor API). The files are JSON with comments and trailing commas
 (utils/json5lite.py).
 
 Load + validate both files at startup with the semantic cross-checks (every
-rule's provider must exist, the fallback provider must exist) and the
-refusal of provider and rule knobs the port has not ported
-(:func:`refuse_unported`). Library code raises :class:`ConfigError`; the
-entry point decides process fate.
+rule's provider must exist, the fallback provider must exist). Library code
+raises :class:`ConfigError`; the entry point decides process fate.
 """
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from pathlib import Path
 from typing import Any
@@ -19,8 +18,7 @@ from typing import Any
 from pydantic import ValidationError
 
 from ..utils import json5lite
-from .schemas import (ConfigError, ModelFallbackConfig, ProviderDetails,
-                      not_ported)
+from .schemas import ConfigError, ModelFallbackConfig, ProviderDetails
 
 logger = logging.getLogger(__name__)
 
@@ -91,51 +89,12 @@ def cross_validate(providers: dict[str, ProviderDetails],
             f"FALLBACK_PROVIDER {fallback_provider!r} not in providers.json")
 
 
-def refuse_unported(providers: dict[str, ProviderDetails],
-                    rules: dict[str, ModelFallbackConfig]) -> None:
-    """Raise :class:`~.schemas.NotPorted` (a ``ConfigError`` and a
-    ``ValueError``) for a provider or rule knob whose feature the port
-    lacks, naming its ROADMAP item, so a config never silently means
-    something else here. The port serves local providers only (a
-    ``remote_http`` target is unavailable and the chain moves on), so only
-    knobs that reach a local provider are refused, and of those only what
-    the JAX router applies to a chain of local providers:
-
-    * a local provider's enabled ``breaker`` (breakers and deadlines);
-    * on a rule with a local target: ``rotate_models`` over more than one
-      target (rotation), ``timeout_ms``, ``slo_ttft_ms`` and ``slo_tpot_ms``
-      (breakers and deadlines);
-    * on a local target: ``use_provider_order_as_fallback`` with a
-      ``providers_order``, which makes the JAX router try the target once
-      per listed sub-provider (remote providers).
-
-    Inert in the JAX router for a local target, and so accepted:
-    ``providers_order`` alone (it is sent to OpenRouter only),
-    ``custom_headers`` (the local provider reads no headers), and
-    ``rotate_models`` on a one-target chain.
-    """
-    for name, details in providers.items():
-        if (details.type == "local" and details.breaker is not None
-                and details.breaker.enabled):
-            raise not_ported(f"provider {name!r}: breaker",
-                             "breakers and deadlines")
-    for model_name, rule in rules.items():
-        local = [fm for fm in rule.fallback_models
-                 if providers.get(fm.provider) is not None
-                 and providers[fm.provider].type == "local"]
-        if not local:
-            continue
-        where = f"rule {model_name!r}"
-        if rule.rotate_models and len(rule.fallback_models) > 1:
-            raise not_ported(f"{where}: rotate_models", "rotation")
-        for knob in ("timeout_ms", "slo_ttft_ms", "slo_tpot_ms"):
-            if getattr(rule, knob):
-                raise not_ported(f"{where}: {knob}", "breakers and deadlines")
-        for fm in local:
-            if fm.use_provider_order_as_fallback and fm.providers_order:
-                raise not_ported(
-                    f"{where}, target {fm.provider!r}: "
-                    f"use_provider_order_as_fallback", "remote providers")
+def resolve_api_key(details: ProviderDetails) -> str | None:
+    """The provider's API key: ``apikey`` names an environment variable if
+    one is set, else it is the literal key."""
+    if not details.apikey:
+        return None
+    return os.environ.get(details.apikey) or details.apikey
 
 
 class ConfigLoader:
@@ -174,7 +133,6 @@ class ConfigLoader:
         providers = parse_providers(self._read_config(self.providers_path))
         rules = parse_rules(self._read_config(self.rules_path))
         cross_validate(providers, rules, self.fallback_provider)
-        refuse_unported(providers, rules)
         with self._lock:
             self._providers = providers
             self._rules = rules

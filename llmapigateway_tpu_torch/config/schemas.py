@@ -11,9 +11,8 @@ package's ``config/schemas.py`` with the same fields and defaults, so a
 The schema accepts every knob of the JAX package, so a file written for
 either package validates against both. What the port has not ported yet is
 refused where it would mean something here: engine knobs at engine build
-(engine/engine.py ``_refuse_unported``), provider and rule knobs at config
-load (config/loader.py ``refuse_unported``), each with a :class:`NotPorted`
-error naming its ROADMAP item. A knob the JAX package itself treats as inert
+(engine/engine.py ``_refuse_unported``), with a :class:`NotPorted` error
+naming its ROADMAP item. A knob the JAX package itself treats as inert
 for the configuration stays accepted, and so do the engine knobs that mean
 nothing off the TPU (``compilation_cache_dir``, ``debug_nans``,
 ``prewarm_sampler_variants``, ``profile_annotations``).
@@ -127,8 +126,8 @@ class LocalEngineConfig(BaseModel):
 
 
 class BreakerSettings(BaseModel):
-    """Per-provider circuit-breaker knobs. Breakers are not ported yet: an
-    enabled breaker on a local provider is refused at config load."""
+    """Per-provider circuit-breaker knobs (reliability/breaker.py). A
+    provider without a ``breaker`` block gets these defaults."""
     model_config = ConfigDict(extra="forbid")
 
     enabled: bool = True

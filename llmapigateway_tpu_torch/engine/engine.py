@@ -130,7 +130,11 @@ class GenRequest:
     emitted_upto: int = 0          # index into `text` already sent downstream
     cancelled: bool = False        # client gone — stop generating, free slot
     finish_reason: str | None = None
+    # Latency targets (obs/slo.py), evaluated at stream end.
+    slo_ttft_ms: float | None = None
+    slo_tpot_ms: float | None = None
     t_submit: float = field(default_factory=time.monotonic)
+    t_admitted: float | None = None   # slot admission (queued-phase end)
     t_first_token: float | None = None
     t_done: float | None = None
     # Prefix cache: prompt tokens served from resident KV (prefill skipped),
@@ -325,6 +329,10 @@ class InferenceEngine:
         self._depth_hist: dict[int, int] = {}
         self._busy_clamps = 0
         self._last_burst_depth = 0
+        # Telemetry of the Retry-After hint (retry_after_hint_s): ms per
+        # decode step over steady pairs of any depth, and the queue wait.
+        self._ema_step_ms_stats: float | None = None
+        self._queue_wait_ema_ms: float | None = None
 
     # -- initialization ------------------------------------------------------
     def _init_state(self) -> None:
@@ -514,6 +522,19 @@ class InferenceEngine:
         await self.start()
         self._work_event.set()
 
+    def retry_after_hint_s(self) -> float:
+        """How long a shed client should wait before retrying (JAX
+        engine.py:1528): the measured admission wait plus one decode step
+        per queued request. Bounded to [1, 30] s: a Retry-After, not a
+        promise."""
+        step_ms = self._ema_step_ms_stats
+        if step_ms is None:
+            est = self._step_ms_estimate()
+            step_ms = est if est is not None else 0.0
+        wait_ms = self._queue_wait_ema_ms or 0.0
+        est_ms = wait_ms + step_ms * max(1, self._queue.qsize())
+        return min(30.0, max(1.0, est_ms / 1000.0))
+
     async def stream(self, req: GenRequest) -> AsyncIterator[Delta]:
         """Yield deltas for a submitted request until it finishes."""
         while True:
@@ -596,6 +617,13 @@ class InferenceEngine:
                     break
             self._head = None
             req.slot = self._free_slots.pop()
+            # Queue wait (submit → slot admission), the scheduler half of
+            # TTFT: an input of the Retry-After hint.
+            req.t_admitted = time.monotonic()
+            wait_ms = 1000.0 * (req.t_admitted - req.t_submit)
+            self._queue_wait_ema_ms = (
+                wait_ms if self._queue_wait_ema_ms is None
+                else 0.8 * self._queue_wait_ema_ms + 0.2 * wait_ms)
             if self.allocator is not None:
                 self.allocator.allocate(req.slot, total,
                                         ring_pages=self._swa_ring_pages,
@@ -853,12 +881,17 @@ class InferenceEngine:
     def _record_burst_wall(self, n_steps: int, wall: float) -> None:
         """One steady same-depth pair's wall (ms): a lag-one call's wall
         then covers exactly one burst at that depth. Feeds the depth's EMA,
-        the controller's input."""
+        the controller's input, and the per-step EMA whatever the depth,
+        the Retry-After hint's input."""
         prev_w = self._burst_walls.get(n_steps)
         self._burst_walls[n_steps] = (
             wall if prev_w is None else 0.8 * prev_w + 0.2 * wall)
         self._burst_wall_n += 1
         self._burst_wall_stamp[n_steps] = self._burst_wall_n
+        ms_any = wall / n_steps
+        self._ema_step_ms_stats = (
+            ms_any if self._ema_step_ms_stats is None
+            else 0.8 * self._ema_step_ms_stats + 0.2 * ms_any)
 
     def _burst_depth(self, busy: bool) -> int:
         """Depth of the next decode burst (JAX engine.py:3094-3168).

@@ -1,10 +1,12 @@
 """`local` provider: the in-process PyTorch engine behind the standard
 provider contract (counterpart of the JAX package's ``providers/local.py``,
-without its tracing, metrics and deadline hooks, which come with the
-observability and reliability layers).
+without its tracing and metrics, which come with the observability layer).
 
 Streaming commits only after the first token exists (prefill admission +
-first sample), so an engine failure before it can still fall back.
+first sample), so an engine failure before it can still fall back. Engine
+overload is a failable provider condition carrying the engine's
+Retry-After hint; a request deadline bounds the first-token wait and the
+decode, and cancels the slot when it expires.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from ..config.schemas import ProviderDetails
 from ..engine.engine import (EngineOverloaded, EngineUnavailable, GenRequest,
                              InferenceEngine)
+from ..obs import slo as obs_slo
 from ..utils.sse import SSE_DONE, format_sse
 from .base import (
     CompletionError,
@@ -87,6 +90,12 @@ class LocalProvider(Provider):
             if req.t_done and n_gen > 1 and req.t_done > req.t_first_token:
                 usage["tokens_per_sec"] = round(
                     (n_gen - 1) / (req.t_done - req.t_first_token), 2)
+        slo_out = obs_slo.evaluate(req, obs_slo.SLOTargets(
+            ttft_ms=req.slo_ttft_ms, tpot_ms=req.slo_tpot_ms))
+        if slo_out is not None:
+            # Rides the usage object into the SSE usage frame and the
+            # usage DB row (extract_usage_fields reads met / phase).
+            usage["slo"] = slo_out
         return usage
 
     # -- the provider contract -------------------------------------------------
@@ -99,29 +108,51 @@ class LocalProvider(Provider):
         except (ValueError, TypeError) as e:
             return None, CompletionError(
                 f"invalid request for local engine: {e}", retryable=False)
+        if request.slo is not None:
+            req.slo_ttft_ms = request.slo.ttft_ms
+            req.slo_tpot_ms = request.slo.tpot_ms
         try:
             await self.engine.submit(req)
         except EngineOverloaded as e:
             # Overload is a failable provider condition: the router falls
-            # back to the next target.
-            return None, CompletionError(str(e), status=503, kind="overload")
+            # back to the next target and, when the whole chain is
+            # overloaded, sheds with HTTP 429 and a Retry-After from the
+            # engine's own telemetry.
+            return None, CompletionError(
+                str(e), status=503, kind="overload",
+                retry_after_s=self.engine.retry_after_hint_s())
         except EngineUnavailable as e:
             return None, CompletionError(str(e), status=503)
 
         # Wait for the first delta before committing: if the engine fails
-        # before producing a token, the router can still fall back.
+        # before producing a token, the router can still fall back. A
+        # request deadline bounds this wait: on expiry the slot is
+        # cancelled (the engine drops it at its next pass) and the attempt
+        # reports kind="timeout", so the router's 504 path takes over.
+        deadline = request.deadline
         stream_iter = self.engine.stream(req)
         try:
-            first_delta = await anext(stream_iter)
+            if deadline is not None:
+                first_delta = await asyncio.wait_for(
+                    anext(stream_iter),
+                    timeout=max(0.001, deadline.remaining()))
+            else:
+                first_delta = await anext(stream_iter)
         except StopAsyncIteration:
             return None, CompletionError("engine produced no output")
+        except asyncio.TimeoutError:
+            req.cancelled = True
+            return None, CompletionError(
+                "deadline expired before the local engine produced a token",
+                kind="timeout", retryable=False)
         if first_delta.error is not None:
             return None, CompletionError(first_delta.error)
         observer.on_first_token()
 
         if request.stream:
             frames = self._sse_frames(req, stream_iter, first_delta,
-                                      model_name, observer)
+                                      model_name, observer,
+                                      deadline=deadline)
             return StreamingCompletion(frames=frames, provider=self.name,
                                        model=model_name), None
 
@@ -131,11 +162,21 @@ class LocalProvider(Provider):
         finish = first_delta.finish_reason
         error = first_delta.error
         try:
-            if finish is None:
+            if finish is None and error is None:
                 async for delta in stream_iter:
                     text_parts.append(delta.text)
                     finish = delta.finish_reason
                     error = delta.error
+                    if (finish is None and error is None
+                            and deadline is not None and deadline.expired()):
+                        # The client asked for a bounded wait, not a
+                        # truncated answer: stop the slot, report timeout
+                        # (the router answers 504).
+                        req.cancelled = True
+                        observer.on_stream_end("deadline expired")
+                        return None, CompletionError(
+                            "deadline expired during local decode",
+                            kind="timeout", retryable=False)
         except asyncio.CancelledError:
             req.cancelled = True
             raise
@@ -162,7 +203,8 @@ class LocalProvider(Provider):
 
     async def _sse_frames(self, req: GenRequest, stream_iter: AsyncIterator,
                           first_delta, model_name: str,
-                          observer: UsageObserver) -> AsyncIterator[bytes]:
+                          observer: UsageObserver,
+                          deadline=None) -> AsyncIterator[bytes]:
         cid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
 
@@ -196,6 +238,17 @@ class LocalProvider(Provider):
                         error = delta.error
                         yield format_sse({"error": {"message": error,
                                                     "provider": self.name}})
+                        return
+                    if (deadline is not None and deadline.expired()
+                            and delta.finish_reason is None):
+                        # Budget spent mid-stream: stop decoding, free the
+                        # slot, and end the committed stream with an
+                        # in-band error frame (the 200 is on the wire).
+                        error = "deadline expired mid-stream"
+                        req.cancelled = True
+                        yield format_sse({"error": {
+                            "message": "request deadline expired mid-stream",
+                            "provider": self.name, "code": 504}})
                         return
                     if delta.text:
                         observer.on_content_delta(delta.text)

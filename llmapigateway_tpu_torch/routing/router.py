@@ -1,54 +1,71 @@
-"""Routing: rule → provider chain, tried in order (counterpart of the JAX
-package's ``routing/router.py``).
+"""Routing: rule resolution, rotation, and the retry/fallback state machine
+(counterpart of the JAX package's ``routing/router.py``).
 
 * Rule lookup by gateway model name; unknown models become a synthetic
   single-target chain on the configured fallback provider with the model
   name passed through.
+* Rotation: a persisted per-(client key, gateway model) round-robin start
+  index (db/rotation.py) reorders the chain circularly; DB errors degrade
+  to index 0, and the SQLite call runs off the event loop.
 * Per target: ``retry_count`` extra attempts, sleeping ``retry_delay``
-  seconds when ``0 < delay < 120``; every attempt gets a fresh deep-copied
-  payload with the model rewritten to the provider-real name and the
-  rule's ``custom_body_params`` merged.
-* All targets exhausted → a terminal error the server maps to HTTP 503
-  (429 when every failure was engine overload).
+  seconds when ``0 < delay < 120``, the sleep clamped by the request's
+  deadline; with ``use_provider_order_as_fallback`` each attempt tries the
+  listed OpenRouter upstreams one at a time, each pinned.
+* Every attempt gets a fresh deep-copied payload: the model rewritten to
+  the provider-real name, OpenRouter's ``usage: {include: true}`` and
+  ``provider.order``, the rule's ``custom_body_params``; headers
+  ``HTTP-Referer``/``X-Title`` and the rule's ``custom_headers``.
+* Reliability: a per-request deadline (client header or body > rule
+  ``timeout_ms`` > gateway default), a circuit breaker per provider whose
+  open state skips the target at once, and a fast exit from a target on a
+  non-retryable failure or when its breaker has just opened.
+* Terminal status: 504 when the deadline ran out, 429 when every failure
+  was backpressure (engine overload or an open breaker; ``retry_after_s``
+  the largest hint), 503 otherwise.
 
-Providers are the port's local engines. Rotation, circuit breakers,
-deadlines, SLO targets, the usage DB and remote HTTP providers are not
-ported yet: a ``remote_http`` target is reported unavailable and the chain
-moves on, and a rule that would use one of the others on a local target
-(``rotate_models`` over several targets, ``timeout_ms``, ``slo_*``,
-``use_provider_order_as_fallback``) is refused at config load
-(config/loader.py ``refuse_unported``). ``providers_order`` and
-``custom_headers`` are inert for a local target, in the JAX router too.
+The JAX router's trace spans and metrics come with the observability
+layer (ROADMAP.md, port queue item 14).
 """
 from __future__ import annotations
 
 import asyncio
 import copy
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
-from ..config.loader import ConfigLoader
+from ..config.loader import ConfigLoader, resolve_api_key
 from ..config.schemas import FallbackModelRule, ModelFallbackConfig, ProviderDetails
+from ..db.rotation import RotationDB
+from ..obs.slo import SLOTargets, resolve_slo
 from ..providers.base import (
     CompletionError,
     CompletionRequest,
     JSONCompletion,
-    NullUsageObserver,
     Provider,
     StreamingCompletion,
+    UsageObserver,
 )
+from ..providers.remote_http import RemoteHTTPProvider
+from ..reliability.breaker import BreakerRegistry, counts_as_breaker_failure
+from ..reliability.deadline import Deadline
 
 logger = logging.getLogger(__name__)
 
 MAX_RETRY_DELAY_S = 120.0
 
+# Sent upstream on every attempt (OpenRouter's app attribution); a rule's
+# custom_headers override them.
+REFERER = "https://llmapigateway-tpu.local"
+TITLE = "LLM API Gateway (TPU)"
+
 
 class ProviderRegistry:
-    """Builds and caches the port's providers from the config. ``local``
-    providers are built through a pluggable factory (which fixes their
-    device); a build runs in a worker thread so the event loop keeps
-    serving while an engine initializes."""
+    """Builds and caches the providers from the config. ``local`` providers
+    are built through a pluggable factory (which fixes their device); a
+    build runs in a worker thread so the event loop keeps serving while an
+    engine initializes."""
 
     def __init__(self, loader: ConfigLoader,
                  local_factory: Callable[[str, ProviderDetails], Provider] | None = None):
@@ -77,16 +94,14 @@ class ProviderRegistry:
             return provider
 
     def _build(self, name: str, details: ProviderDetails) -> Provider | None:
-        if details.type != "local":
-            logger.error("provider %s: type %r is not ported to the PyTorch "
-                         "gateway yet (ROADMAP.md, port queue: remote "
-                         "providers)", name, details.type)
-            return None
-        if self._local_factory is None:
-            logger.error("provider %s is type=local but no engine factory "
-                         "is installed", name)
-            return None
-        return self._local_factory(name, details)
+        if details.type == "local":
+            if self._local_factory is None:
+                logger.error("provider %s is type=local but no engine "
+                             "factory is installed", name)
+                return None
+            return self._local_factory(name, details)
+        return RemoteHTTPProvider(name=name, base_url=details.baseUrl or "",
+                                  api_key=resolve_api_key(details))
 
     async def close(self) -> None:
         async with self._lock:
@@ -101,16 +116,28 @@ class RouteOutcome:
     result: StreamingCompletion | JSONCompletion | None
     error: CompletionError | None
     attempts: int = 0
+    provider: str = ""
+    model: str = ""
     errors: list[str] = field(default_factory=list)
 
 
 class Router:
     def __init__(self, loader: ConfigLoader, registry: ProviderRegistry,
-                 fallback_provider: str = "openrouter"):
+                 rotation_db: RotationDB, fallback_provider: str = "openrouter",
+                 sleep: Callable[[float], Any] | None = None,
+                 breakers: BreakerRegistry | None = None,
+                 default_timeout_ms: float = 0.0,
+                 clock: Callable[[], float] | None = None):
         self._loader = loader
         self._registry = registry
+        self._rotation = rotation_db
         self._fallback_provider = fallback_provider
+        self._sleep = sleep or asyncio.sleep     # injectable for tests
+        self._breakers = breakers
+        self._default_timeout_ms = default_timeout_ms
+        self._clock = clock or time.monotonic    # injectable for tests
 
+    # -- rule resolution -----------------------------------------------------
     def resolve_rule(self, gateway_model: str) -> ModelFallbackConfig:
         rule = self._loader.rules.get(gateway_model)
         if rule is not None:
@@ -121,58 +148,191 @@ class Router:
             fallback_models=[FallbackModelRule(
                 provider=self._fallback_provider, model=gateway_model)])
 
+    async def _ordered_targets(self, rule: ModelFallbackConfig,
+                               client_key: str) -> list[FallbackModelRule]:
+        targets = list(rule.fallback_models)
+        if rule.rotate_models and len(targets) > 1:
+            start = await self._rotation.next_index_async(
+                client_key, rule.gateway_model_name, len(targets))
+            targets = targets[start:] + targets[:start]
+        return targets
+
+    # -- payload/header construction ------------------------------------------
     @staticmethod
-    def _build_attempt(payload: dict[str, Any],
-                       target: FallbackModelRule) -> CompletionRequest:
+    def _build_attempt(payload: dict[str, Any], target: FallbackModelRule,
+                       provider_name: str,
+                       pinned_order: list[str] | None,
+                       deadline: Deadline | None = None,
+                       request_id: str = "",
+                       slo: SLOTargets | None = None) -> CompletionRequest:
         attempt = copy.deepcopy(payload)
         attempt["model"] = target.model
+        if provider_name.lower() == "openrouter":
+            # Ask OpenRouter to report usage and cost.
+            attempt.setdefault("usage", {"include": True})
+            order = pinned_order if pinned_order is not None else target.providers_order
+            if order:
+                attempt["provider"] = {"order": list(order),
+                                       "allow_fallbacks": False}
         if target.custom_body_params:
             attempt.update(copy.deepcopy(target.custom_body_params))
-        return CompletionRequest(payload=attempt,
-                                 stream=bool(attempt.get("stream", False)))
+        headers = {"HTTP-Referer": REFERER, "X-Title": TITLE}
+        if request_id:
+            # One id correlates gateway and upstream logs.
+            headers["x-request-id"] = request_id
+        if target.custom_headers:
+            headers.update(target.custom_headers)
+        stream = bool(attempt.get("stream", False))
+        return CompletionRequest(payload=attempt, stream=stream,
+                                 extra_headers=headers, deadline=deadline,
+                                 slo=slo)
 
-    async def dispatch(self, payload: dict[str, Any]) -> RouteOutcome:
+    # -- the state machine -----------------------------------------------------
+    def _start_deadline(self, rule: ModelFallbackConfig,
+                        timeout_ms: float | None) -> Deadline | None:
+        """The request's time budget: the client's ask (header or body,
+        parsed by the HTTP layer) > the rule's ``timeout_ms`` > the
+        gateway-wide default; 0/None at every level = unbounded."""
+        budget_ms = timeout_ms or rule.timeout_ms or self._default_timeout_ms
+        if not budget_ms or budget_ms <= 0:
+            return None
+        return Deadline(budget_ms / 1000.0, clock=self._clock)
+
+    async def dispatch(self, payload: dict[str, Any], client_key: str,
+                       observer_factory: Callable[[str, str], UsageObserver],
+                       timeout_ms: float | None = None,
+                       request_id: str = "",
+                       slo: SLOTargets | None = None) -> RouteOutcome:
         """Route one chat-completions payload through the fallback chain.
-        Usage is not recorded yet (the usage DB is not ported): every
-        attempt gets a null observer."""
+
+        ``observer_factory(provider, model)`` builds a fresh usage observer
+        per attempt; only the successful attempt's observer sees a complete
+        stream, so usage is recorded once. ``timeout_ms`` is the client's
+        explicit budget, if any. ``request_id`` is sent upstream. ``slo``
+        is the client's SLO ask; the rule's ``slo_ttft_ms`` /
+        ``slo_tpot_ms`` fill unset fields.
+        """
         gateway_model = str(payload.get("model", ""))
         rule = self.resolve_rule(gateway_model)
+        targets = await self._ordered_targets(rule, client_key)
+        deadline = self._start_deadline(rule, timeout_ms)
+        slo = resolve_slo(slo, rule)
+
         outcome = RouteOutcome(result=None, error=None)
-        n_overload = n_other = 0
-        for target in rule.fallback_models:
+        n_overload = 0
+        n_other = 0
+        deadline_hit = False
+        retry_hints: list[float] = []
+
+        for target in targets:
+            if deadline is not None and deadline.expired():
+                deadline_hit = True
+                break
             provider = await self._registry.get(target.provider)
             if provider is None:
                 outcome.errors.append(
                     f"provider {target.provider!r} unavailable")
                 n_other += 1
                 continue
-            retries = max(0, int(target.retry_count))
-            for attempt_idx in range(retries + 1):
-                request = self._build_attempt(payload, target)
-                outcome.attempts += 1
-                result, error = await provider.complete(request,
-                                                        NullUsageObserver())
-                if error is None and result is not None:
-                    outcome.result = result
-                    return outcome
-                if error is not None and error.kind == "overload":
-                    n_overload += 1
-                else:
-                    n_other += 1
+
+            breaker = (self._breakers.get(target.provider)
+                       if self._breakers is not None else None)
+            if breaker is not None and not breaker.allow():
+                # Open breaker: fall through at once, no payload build, no
+                # network, no retry sleeps for a known-dead upstream.
+                cooldown = breaker.cooldown_remaining()
                 outcome.errors.append(
-                    f"{target.provider}/{target.model}: "
-                    f"{error if error else 'empty response'}")
-                logger.warning("attempt failed: %s", outcome.errors[-1])
-                if error is not None and not error.retryable:
+                    f"{target.provider}/{target.model}: circuit open "
+                    f"(retry in {cooldown:.1f}s)")
+                retry_hints.append(cooldown)
+                n_overload += 1
+                continue
+
+            # Sub-provider fallback: OpenRouter's upstreams one at a time,
+            # each pinned; otherwise one attempt series with the whole
+            # order pinned.
+            if target.use_provider_order_as_fallback and target.providers_order:
+                sub_orders: list[list[str] | None] = [
+                    [sub] for sub in target.providers_order]
+            else:
+                sub_orders = [None]
+
+            retries = max(0, int(target.retry_count))
+            target_done = False          # non-retryable / deadline fast exit
+            target_attempted = False     # any attempt actually sent?
+            for attempt_idx in range(retries + 1):
+                for sub_order in sub_orders:
+                    if deadline is not None and deadline.expired():
+                        deadline_hit = True
+                        target_done = True
+                        if breaker is not None and not target_attempted:
+                            # allow() may have reserved the half-open
+                            # probe; it was never sent: release it.
+                            breaker.release_probe()
+                        break
+                    request = self._build_attempt(
+                        payload, target, target.provider, sub_order, deadline,
+                        request_id=request_id, slo=slo)
+                    observer = observer_factory(target.provider, target.model)
+                    outcome.attempts += 1
+                    target_attempted = True
+                    result, error = await provider.complete(request, observer)
+                    if error is None and result is not None:
+                        if breaker is not None:
+                            breaker.record_success()
+                        outcome.result = result
+                        outcome.provider = target.provider
+                        outcome.model = target.model
+                        return outcome
+                    breaker_opened = False
+                    if breaker is not None:
+                        if counts_as_breaker_failure(error):
+                            breaker.record_failure()
+                            # The window has judged this target dead: its
+                            # remaining retries and sleeps would be waste.
+                            breaker_opened = breaker.state == "open"
+                        else:
+                            # Alive but rejecting (plain 4xx).
+                            breaker.record_success()
+                    if error is not None and error.kind == "overload":
+                        n_overload += 1
+                        if error.retry_after_s is not None:
+                            retry_hints.append(error.retry_after_s)
+                    else:
+                        n_other += 1
+                    detail = str(error) if error else "empty response"
+                    sub = f" (upstream={sub_order[0]})" if sub_order else ""
+                    outcome.errors.append(
+                        f"{target.provider}/{target.model}{sub}: {detail}")
+                    logger.warning("attempt failed: %s", outcome.errors[-1])
+                    if breaker_opened or (error is not None
+                                          and not error.retryable):
+                        target_done = True
+                        break
+                if target_done:
                     break
-                if attempt_idx < retries and \
-                        0 < target.retry_delay < MAX_RETRY_DELAY_S:
-                    await asyncio.sleep(target.retry_delay)
-        if n_overload and not n_other:
+                if attempt_idx < retries and 0 < target.retry_delay < MAX_RETRY_DELAY_S:
+                    # A retry_delay never outlives the request's deadline.
+                    delay = (deadline.clamp(target.retry_delay)
+                             if deadline is not None else target.retry_delay)
+                    if delay > 0:
+                        await self._sleep(delay)
+            if deadline_hit:
+                break
+
+        if deadline is not None and (deadline_hit or deadline.expired()):
+            budget_ms = deadline.budget_s * 1000.0
             outcome.error = CompletionError(
-                detail="all providers overloaded: "
+                detail=(f"deadline of {budget_ms:.0f} ms exhausted after "
+                        f"{outcome.attempts} attempt(s): "
+                        + ("; ".join(outcome.errors[-5:]) or "no attempts made")),
+                status=504, retryable=False, kind="timeout")
+        elif n_overload > 0 and n_other == 0 and outcome.errors:
+            outcome.error = CompletionError(
+                detail="all providers overloaded or shedding: "
                        + "; ".join(outcome.errors[-5:]),
-                status=429, kind="overload")
+                status=429, retryable=True, kind="overload",
+                retry_after_s=max(retry_hints, default=1.0))
         else:
             outcome.error = CompletionError(
                 detail="; ".join(outcome.errors[-5:]) or

@@ -1,5 +1,5 @@
-"""Application composition: config, router, providers, HTTP app
-(counterpart of the JAX package's ``server/app.py``).
+"""Application composition: config, DBs, breakers, router, providers, HTTP
+app (counterpart of the JAX package's ``server/app.py``).
 
 ``python -m llmapigateway_tpu_torch`` serves like ``python main.py``, with
 the port's engine behind ``type: "local"`` providers on the device given by
@@ -7,6 +7,7 @@ the port's engine behind ``type: "local"`` providers on the device given by
 """
 from __future__ import annotations
 
+import asyncio
 import functools
 import logging
 from typing import Callable
@@ -15,29 +16,49 @@ from aiohttp import web
 
 from ..config.loader import ConfigLoader
 from ..config.settings import Settings
+from ..db.recorder import UsageRecorder
+from ..db.rotation import RotationDB
+from ..db.usage import UsageDB
 from ..providers.base import Provider
 from ..providers.local import make_local_provider
+from ..reliability.breaker import BreakerRegistry
 from ..routing.router import ProviderRegistry, Router
-from . import chat, models_api
+from . import chat, models_api, stats_api
 from .middleware import auth_middleware
 
 logger = logging.getLogger(__name__)
 
+RETENTION_SWEEP_S = 24 * 3600
+
 
 class GatewayApp:
     """Holds the gateway's singletons; attached to the aiohttp app as
-    ``app["gateway"]``."""
+    ``app["gateway"]``. The usage ledger and the rotation state live under
+    ``settings.db_dir``."""
 
     def __init__(self, settings: Settings, loader: ConfigLoader,
                  local_factory: Callable[..., Provider] | None = None):
         self.settings = settings
         self.loader = loader
+        self.usage_db = UsageDB(settings.db_dir or "db")
+        # Write-behind: stream-end observers enqueue, one flusher thread
+        # writes SQLite; close() drains it before the DB closes.
+        self.usage_recorder = UsageRecorder(self.usage_db)
+        self.rotation_db = RotationDB(settings.db_dir or "db")
         self.registry = ProviderRegistry(loader, local_factory=local_factory)
-        self.router = Router(loader, self.registry,
-                             fallback_provider=settings.fallback_provider)
+        self.breakers = BreakerRegistry(loader)
+        self.router = Router(
+            loader, self.registry, self.rotation_db,
+            fallback_provider=settings.fallback_provider,
+            breakers=self.breakers,
+            default_timeout_ms=settings.default_request_timeout_ms)
 
     async def close(self) -> None:
         await self.registry.close()
+        # Recorder before DB: drain the queue while the connection is open.
+        await asyncio.to_thread(self.usage_recorder.close)
+        self.usage_db.close()
+        self.rotation_db.close()
 
 
 async def _health(request: web.Request) -> web.Response:
@@ -62,10 +83,36 @@ def build_app(settings: Settings | None = None,
     app.router.add_get("/health", _health)
     app.router.add_post("/v1/chat/completions", chat.chat_completions)
     app.router.add_get("/v1/models", models_api.get_models)
+    app.router.add_get("/v1/api/usage-stats/{period}",
+                       stats_api.get_usage_stats)
+    app.router.add_get("/v1/api/usage-records", stats_api.get_usage_records)
+    app.router.add_get("/v1/api/health/providers",
+                       stats_api.get_provider_health)
+
+    async def _retention_loop() -> None:
+        while True:
+            removed = await asyncio.to_thread(
+                gw.usage_db.cleanup_old_records,
+                settings.usage_retention_days)
+            if removed:
+                logger.info("usage retention: removed %d old rows", removed)
+            await asyncio.sleep(RETENTION_SWEEP_S)
+
+    async def _on_startup(app: web.Application) -> None:
+        app["retention_task"] = asyncio.get_running_loop().create_task(
+            _retention_loop())
 
     async def _on_cleanup(app: web.Application) -> None:
+        task = app.get("retention_task")
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
         await gw.close()
 
+    app.on_startup.append(_on_startup)
     app.on_cleanup.append(_on_cleanup)
     return app
 

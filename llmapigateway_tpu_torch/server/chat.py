@@ -3,15 +3,29 @@
 leniently (utils/json5lite.py: comments and trailing commas). Streaming
 responses are committed (200, SSE headers) only after routing has produced
 a primed stream, so a failure before the first token still falls back.
+
+The client's ``x-request-timeout-ms`` header (or ``timeout_ms`` body
+field) becomes the request's deadline budget and ``x-slo-ttft-ms`` /
+``x-slo-tpot-ms`` its SLO targets. An exhausted budget answers **504**
+with the partial-attempt log; an all-overloaded or all-breaker-open chain
+**429** with a numeric ``Retry-After`` from the engine's telemetry or the
+breakers' cooldowns; anything else **503**. Each attempt gets a usage
+collector (server/usage_capture.py) that records the completed one.
 """
 from __future__ import annotations
 
+import functools
 import logging
+import math
 
 from aiohttp import web
 
+from ..obs.slo import slo_from_headers
 from ..providers.base import JSONCompletion, StreamingCompletion
+from ..reliability.deadline import budget_ms_from_request
 from ..utils import json5lite
+from .middleware import client_api_key
+from .usage_capture import UsageCollector
 
 logger = logging.getLogger(__name__)
 
@@ -31,18 +45,28 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
             {"error": {"message": "missing required field 'model'", "code": 400}},
             status=400)
 
-    outcome = await gw.router.dispatch(payload)
+    timeout_ms = budget_ms_from_request(request.headers, payload)
+    slo = slo_from_headers(request.headers)
+    observer_factory = functools.partial(_make_collector, payload=payload,
+                                         gw=gw)
+    outcome = await gw.router.dispatch(
+        payload, client_api_key(request), observer_factory,
+        timeout_ms=timeout_ms, request_id=request.get("request_id", ""),
+        slo=slo)
 
     if outcome.error is not None or outcome.result is None:
         err = outcome.error
         detail = str(err) if err else "no providers succeeded"
-        status = 429 if err is not None and err.status == 429 else 503
+        status = err.status if err and err.status in (429, 504) else 503
         headers = {}
         if status == 429:
-            headers["Retry-After"] = "1"
-            message = f"Gateway overloaded. {detail}"
-        else:
-            message = f"All fallback models failed. Last error: {detail}"
+            # Numeric Retry-After (RFC 9110 delay-seconds).
+            headers["Retry-After"] = str(
+                max(1, math.ceil(err.retry_after_s or 1.0)))
+        message = {
+            429: f"Gateway overloaded. {detail}",
+            504: f"Request deadline exceeded. {detail}",
+        }.get(status, f"All fallback models failed. Last error: {detail}")
         return web.json_response(
             {"error": {"message": message, "code": status,
                        "attempts": outcome.attempts}},
@@ -63,7 +87,21 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
         await resp.write_eof()
     except ConnectionResetError:
         # Client hung up mid-stream; closing the generator cancels the
-        # engine slot.
+        # engine slot (or the upstream stream) and records the usage of
+        # what was streamed.
         logger.info("client disconnected mid-stream")
         await result.frames.aclose()
     return resp
+
+
+def _make_collector(provider: str, model: str, *, payload: dict,
+                    gw) -> UsageCollector:
+    settings = gw.settings
+    # The write-behind recorder duck-types UsageDB.insert: stream-end
+    # observers enqueue instead of writing SQLite inline.
+    return UsageCollector(
+        provider=provider, model=model, usage_db=gw.usage_recorder,
+        request_payload=payload if settings.log_chat_messages else {},
+        logs_dir=settings.logs_dir,
+        log_chat_messages=settings.log_chat_messages,
+        log_file_limit=settings.log_file_limit)

@@ -1,5 +1,6 @@
-"""Bearer auth (the auth half of the JAX package's ``server/middleware.py``;
-CORS, request logging and tracing come with the observability layer).
+"""Bearer auth and the client key (the auth half of the JAX package's
+``server/middleware.py``; CORS, request logging and tracing come with the
+observability layer).
 
 Every endpoint but ``/health`` is protected; the gateway is open when no
 key is configured.
@@ -28,3 +29,12 @@ def auth_middleware(gateway_api_key: str | None):
         return await handler(request)
 
     return middleware
+
+
+def client_api_key(request: web.Request) -> str:
+    """The client's bearer token, the rotation identity ("anonymous"
+    without one)."""
+    auth = request.headers.get("Authorization", "")
+    if auth.startswith("Bearer "):
+        return auth[len("Bearer "):].strip()
+    return "anonymous"

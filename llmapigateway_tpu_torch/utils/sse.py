@@ -1,6 +1,7 @@
 """Server-Sent Events frame parsing and formatting (a copy of the JAX
-package's ``utils/sse.py``; the remote providers' in-band error sniffing
-comes with them)."""
+package's ``utils/sse.py``). Frames are parsed once, incrementally, by the
+provider that reads the stream; :func:`frame_error_detail` sniffs the
+in-band errors that upstreams send inside an HTTP 200."""
 from __future__ import annotations
 
 import json
@@ -94,3 +95,23 @@ class SSEParser:
         if not data_lines:
             return None
         return SSEFrame(data="\n".join(data_lines))
+
+
+def frame_error_detail(obj: Any) -> str | None:
+    """Detect an in-band error object inside an SSE JSON frame or response
+    body: a top-level ``error`` object, a ``detail`` field, or a bare
+    ``code`` field mid-stream. Returns a human-readable detail string, or
+    None if the frame is healthy.
+    """
+    if not isinstance(obj, dict):
+        return None
+    if "error" in obj and obj["error"]:
+        err = obj["error"]
+        if isinstance(err, dict):
+            return str(err.get("message") or err)
+        return str(err)
+    if "detail" in obj and obj["detail"] and "choices" not in obj:
+        return str(obj["detail"])
+    if "code" in obj and "choices" not in obj and "id" not in obj:
+        return f"upstream error code {obj['code']}"
+    return None

@@ -1,5 +1,6 @@
 """The port's boundary: ``llmapigateway_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package; entry points never fall back to the
+import neither JAX, nor the JAX package, nor httpx (the card host may lack
+it; the port's HTTP client is aiohttp's); entry points never fall back to the
 CPU when the card is missing; the smoke exits non-zero without a card or
 without the package; the config reader accepts the repo's example files."""
 import ast
@@ -40,7 +41,7 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "llmapigateway_tpu", "tools")
+    return root in ("jax", "jaxlib", "llmapigateway_tpu", "tools", "httpx")
 
 
 def test_the_scan_covers_the_ported_tools():
@@ -55,7 +56,7 @@ def test_the_scan_covers_the_ported_tools():
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_imports(path):
     """Every module of the port (its ``tools/`` included) and the smoke:
-    no JAX, no JAX package, and not the JAX package's ``tools/``."""
+    no JAX, no JAX package, not the JAX package's ``tools/``, no httpx."""
     bad = [n for n in _imported_modules(path) if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
 

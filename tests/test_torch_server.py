@@ -1,7 +1,8 @@
 """The port's gateway end to end on the CPU: the aiohttp app, the router's
 rule → provider chain, the local provider and the engine on ``tiny-test``,
 through the aiohttp test client — JSON and SSE chat completions, models,
-health, auth, and a chain whose first target cannot be served."""
+health, auth, and a chain whose first target, a remote upstream, cannot
+be reached."""
 import functools
 import json
 
@@ -15,7 +16,7 @@ from llmapigateway_tpu_torch.server.app import build_app
 from llmapigateway_tpu_torch.utils.sse import SSEParser
 
 PROVIDERS = """[
-  // a remote provider: not ported yet, so the chain moves past it
+  // a remote upstream nothing listens on: the chain fails over past it
   { "upstream": { "baseUrl": "http://127.0.0.1:1/v1", "apikey": "K" } },
   { "local": { "type": "local", "engine": {
       "preset": "tiny-test", "kv_page_size": 16, "prefix_cache": false,
@@ -35,7 +36,7 @@ def app(tmp_path):
     (tmp_path / "providers.json").write_text(PROVIDERS)
     (tmp_path / "models_fallback_rules.json").write_text(json.dumps(RULES))
     settings = Settings(gateway_api_key="secret", fallback_provider="local",
-                        config_dir=tmp_path)
+                        config_dir=tmp_path, db_dir=tmp_path / "db")
     return build_app(settings, loader=ConfigLoader(tmp_path, "local"),
                      local_factory=functools.partial(make_local_provider,
                                                      device="cpu"))
@@ -81,11 +82,20 @@ async def test_json_and_sse_chat_completions(app):
 
 
 async def test_chain_skips_an_unported_provider(app):
+    """An unreachable remote target fails over to the local one: the
+    remote attempt fails at connect (no status), its breaker records the
+    failure, and the local engine answers."""
     async with TestClient(TestServer(app)) as client:
         resp = await client.post("/v1/chat/completions",
                                  json=_body("gw/chain"), headers=AUTH)
         assert resp.status == 200
         assert (await resp.json())["usage"]["completion_tokens"] > 0
+        resp = await client.get("/v1/api/health/providers", headers=AUTH)
+        health = (await resp.json())["providers"]
+        assert health["upstream"]["type"] == "remote_http"
+        assert health["upstream"]["window_requests"] == 1
+        assert health["upstream"]["failure_rate"] == 1.0
+        assert health["local"]["failure_rate"] == 0.0
 
 
 async def test_health_models_auth_and_errors(app):
