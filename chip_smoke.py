@@ -132,12 +132,31 @@ Phases, each printed as JSON lines:
              ``/v1/api/health/providers`` the failing stub's breaker open;
              #1/#2 ran once per layer per forward. Walls, and the added cost
              of a failed remote attempt before the local answer.
-10. bench  — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
+10. checkpoint — an HF checkpoint on the card through the config API: a
+             tinyllama-1.1b checkpoint at full width and depth (bf16, two
+             shards) written by the port's synthetic-checkpoint tool; the
+             app serves a local provider on the tinyllama-1.1b preset (random
+             weights) and one built from the checkpoint. A providers.json
+             with a syntax error POSTed to ``/v1/config/providers`` gets 400
+             with the file and the config version unchanged; the same
+             entry with ``model_path`` gets 200 and the next version. The
+             next request (its ``x-request-id`` returned) rebuilds the
+             provider from the checkpoint, and the other provider is not
+             rebuilt: every param leaf ``torch.equal`` to its tensor read
+             back from the shards; 2 SSE + 2 JSON requests, counted,
+             stream the text the directly built engine streams, #1/#2 once
+             per layer per forward; ``/v1/models/AsOpenCodeFormat`` lists
+             the model. The retired engine closes after the registry's
+             grace period (shortened here) and ``memory_allocated`` falls
+             by at least its weights' bytes. Load seconds, host-to-device
+             GB/s, the resident set the load added and the first request's
+             wall are information.
+11. bench  — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
              32 steps, 3 TTFT probes, its shared-prefix rung and its
              ``--ttft-target 200`` rung: its JSON line, a positive value,
              warm requests that ran fewer prefill calls than the cold one,
              and the controller rung served through decode graphs.
-11. the ``kernels`` line (decode rows with the key split ``n_split`` and
+12. the ``kernels`` line (decode rows with the key split ``n_split`` and
    workspace bytes of their timed launch), the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
@@ -2235,20 +2254,25 @@ def _gateway_config(stub_base: str) -> tuple[list, list]:
     return providers, rules
 
 
-async def _gw_post(session, port: int, model: str, stream: bool) -> dict:
-    """POST one chat completion through the gateway: status, text, usage
-    block and wall ms (the body read to its end)."""
+async def _gw_post(session, port: int, model: str, stream: bool,
+                   text: str = GATEWAY_PROMPT,
+                   max_tokens: int = GATEWAY_MAX_TOKENS,
+                   headers: dict | None = None) -> dict:
+    """POST one greedy chat completion through the gateway: status, text,
+    usage block, the response's request id and wall ms (the body read to
+    its end)."""
     body = {"model": model, "stream": stream, "temperature": 0,
-            "max_tokens": GATEWAY_MAX_TOKENS,
-            "messages": [{"role": "user", "content": GATEWAY_PROMPT}]}
+            "max_tokens": max_tokens,
+            "messages": [{"role": "user", "content": text}]}
     t0 = time.monotonic()
     async with session.post(f"http://127.0.0.1:{port}/v1/chat/completions",
-                            json=body) as resp:
+                            json=body, headers=headers or {}) as resp:
         raw = await resp.read()
         resp_status = resp.status
+        request_id = resp.headers.get("x-request-id")
     wall_ms = 1000.0 * (time.monotonic() - t0)
     out = {"status": resp_status, "wall_ms": wall_ms, "text": None,
-           "usage": None}
+           "usage": None, "request_id": request_id}
     if resp_status != 200:
         out["error"] = json.loads(raw)["error"]["message"][:300]
         return out
@@ -2484,7 +2508,304 @@ def gateway_phase(torch, ks, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the port's bench tool, short
+# Phase 10: an HF checkpoint on the card through the config API's hot reload
+# ---------------------------------------------------------------------------
+
+# tinyllama-1.1b at full width and depth, paged bf16; first random weights
+# from its preset, then the same knobs with the checkpoint's weights.
+CKPT_PRESET = "tinyllama-1.1b"
+CKPT_ENGINE = {**TINYLLAMA, **PAGED, "prefix_cache": False, "kv_quant": ""}
+CKPT_SHARD_GB = 1.0
+# The retired engine closes this long after the reload began (the
+# registry's grace period, 330 s in a deployment): longer than the rebuild,
+# so the card holds both engines for a while.
+CKPT_RETIRE_S = 30.0
+CKPT_PROMPT_CHARS = (40, 300, 700, 1100)
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class _RssPeak:
+    """The largest resident set of this process while the block runs,
+    sampled every 10 ms by a thread, less the resident set at its start."""
+
+    def __enter__(self):
+        import threading
+        self.base = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, _rss_bytes())
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+    @property
+    def added(self) -> int:
+        return self.peak - self.base
+
+
+def check_params_are_the_shards(torch, params, model_dir: str) -> int:
+    """Every param leaf, layer by layer, is ``torch.equal`` to its tensor
+    read back from the shards (projections transposed), and every leaf is
+    covered. → the tensors compared."""
+    from pathlib import Path
+
+    from llmapigateway_tpu_torch.engine.checkpoint import _map_name
+    from llmapigateway_tpu_torch.utils.safetensors_lite import safe_open
+    want = {(k, None) for k in params if k != "layers"}
+    want |= {(k, i) for k, v in params["layers"].items()
+             for i in range(v.shape[0])}
+    seen = set()
+    for shard in sorted(Path(model_dir).glob("*.safetensors")):
+        with safe_open(shard) as f:
+            for name in f.keys():
+                key, layer, _, transpose = _map_name(name)
+                leaf = params[key] if layer is None \
+                    else params["layers"][key][layer]
+                t = f.get_tensor(name).to(leaf.device)
+                check(torch.equal(leaf, t.T if transpose else t),
+                      f"checkpoint: {key}[{layer}] differs from {name} in "
+                      f"{shard.name}")
+                seen.add((key, layer))
+    if "lm_head" not in {k for k, _ in seen}:
+        check(params["lm_head"] is params["embed"],
+              "checkpoint: a tied lm_head is not the embed tensor")
+        seen.add(("lm_head", None))
+    check(seen == want, f"checkpoint: leaves not in the shards: "
+                        f"{sorted(want - seen)[:8]}")
+    return len(seen)
+
+
+async def _checkpoint_serve(torch, ks, card: str) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from llmapigateway_tpu_torch.config.loader import ConfigLoader
+    from llmapigateway_tpu_torch.config.settings import Settings
+    from llmapigateway_tpu_torch.engine.checkpoint import unique_bytes
+    from llmapigateway_tpu_torch.ops.flash_attention import (body_name,
+                                                            reset_launches)
+    from llmapigateway_tpu_torch.providers.local import make_local_provider
+    from llmapigateway_tpu_torch.routing.router import ProviderRegistry
+    from llmapigateway_tpu_torch.server.app import build_app
+    from llmapigateway_tpu_torch.tools import make_synthetic_checkpoint
+
+    what = "checkpoint"
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    ckpt = os.path.join(d, "ckpt")
+    t0 = time.monotonic()
+    written = make_synthetic_checkpoint.main([
+        "--preset", CKPT_PRESET, "--out", ckpt, "--dtype", "bfloat16",
+        "--shard-gb", str(CKPT_SHARD_GB), "--seed", "0"])
+    write_s = time.monotonic() - t0
+    check(written["shards"] >= 2, f"{what}: {written['shards']} shard(s)")
+    preset_entry = {"type": "local", "engine": CKPT_ENGINE}
+    ckpt_entry = {"type": "local",
+                  "engine": {**CKPT_ENGINE, "model_path": ckpt}}
+    cfg_dir = os.path.join(d, "config")
+    os.mkdir(cfg_dir)
+    with open(os.path.join(cfg_dir, "providers.json"), "w") as f:
+        json.dump([{"local": preset_entry}, {"direct": ckpt_entry}], f)
+    with open(os.path.join(cfg_dir, "models_fallback_rules.json"), "w") as f:
+        json.dump([{"gateway_model_name": f"gw/{name}",
+                    "fallback_models": [{"provider": name,
+                                         "model": CKPT_PRESET}]}
+                   for name in ("local", "direct")], f)
+    retire_s = ProviderRegistry.RETIRE_AFTER_S
+    ProviderRegistry.RETIRE_AFTER_S = CKPT_RETIRE_S
+    app = build_app(Settings(fallback_provider="local", config_dir=cfg_dir,
+                             db_dir=os.path.join(d, "db")),
+                    loader=ConfigLoader(cfg_dir, "local"),
+                    local_factory=functools.partial(make_local_provider,
+                                                    device="cuda"))
+    runner = web.AppRunner(app)
+    await runner.setup()
+    port = _free_port()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    gw = app["gateway"]
+    res = {"phase": what, "card": card, "preset": CKPT_PRESET,
+           "engine": CKPT_ENGINE, "checkpoint": written,
+           "checkpoint_write_s": write_s}
+    try:
+        t0 = time.monotonic()
+        direct = await gw.registry.get("direct")
+        torch.cuda.synchronize()
+        res["direct_build_s"] = time.monotonic() - t0
+        res["direct_load"] = dict(direct.engine.load_stats)
+        words = ("the quick brown fox jumps over the lazy dog while a "
+                 "checkpoint streams its shards onto the card ")
+        prompts = [(words * (n // len(words) + 1))[:n]
+                   for n in CKPT_PROMPT_CHARS]
+
+        post = functools.partial(_gw_post, max_tokens=SERVE_MAX_TOKENS)
+        async with aiohttp.ClientSession() as session:
+            r = await post(session, port, "gw/local", False, prompts[0])
+            check(r["status"] == 200, f"{what}: random-init request: {r}")
+            old = (await gw.registry.get("local")).engine
+            check(not old.cfg.model_path, f"{what}: not the preset engine")
+            old_bytes = unique_bytes(old.params)
+            url = f"http://127.0.0.1:{port}/v1/config/providers"
+            with open(os.path.join(cfg_dir, "providers.json")) as f:
+                before = f.read()
+            version = gw.loader.version
+            async with session.get(url) as resp:
+                check(resp.status == 200 and await resp.text() == before,
+                      f"{what}: GET providers did not return the file")
+            bad = json.dumps([{"local": ckpt_entry},
+                              {"direct": ckpt_entry}])[:-3]
+            async with session.post(url, data=bad) as resp:
+                bad_res = {"status": resp.status, "body": await resp.json()}
+            with open(os.path.join(cfg_dir, "providers.json")) as f:
+                after_bad = f.read()
+            check(bad_res["status"] == 400 and bad_res["body"]["errors"]
+                  and after_bad == before and gw.loader.version == version,
+                  f"{what}: a save with a syntax error was not refused "
+                  f"cleanly: {bad_res}, version {gw.loader.version}")
+            good = ("// tinyllama-1.1b: the checkpoint's weights\n"
+                    + json.dumps([{"local": ckpt_entry},
+                                  {"direct": ckpt_entry}], indent=1))
+            async with session.post(url, data=good) as resp:
+                good_res = {"status": resp.status,
+                            "body": await resp.json()}
+            with open(os.path.join(cfg_dir, "providers.json")) as f:
+                saved = f.read()
+            check(good_res["status"] == 200
+                  and good_res["body"]["config_version"] == version + 1
+                  and saved == good,
+                  f"{what}: the good save: {good_res}")
+
+            # The next request rebuilds "local" from the checkpoint.
+            with _RssPeak() as rss:
+                first = await post(session, port, "gw/local", False,
+                                   prompts[0],
+                                   headers={"x-request-id": "smoke-ckpt-1"})
+            check(first["status"] == 200
+                  and first["request_id"] == "smoke-ckpt-1",
+                  f"{what}: the rebuilding request: {first}")
+            provider = await gw.registry.get("local")
+            engine = provider.engine
+            check(engine is not old and engine.cfg.model_path == ckpt,
+                  f"{what}: 'local' was not rebuilt from the checkpoint")
+            check(await gw.registry.get("direct") is direct,
+                  f"{what}: the unchanged provider was rebuilt")
+            res.update(first_request_ms=first["wall_ms"],
+                       rebuild_load=dict(engine.load_stats),
+                       rebuild_rss_added_bytes=rss.added)
+            res["params_compared"] = check_params_are_the_shards(
+                torch, engine.params, ckpt)
+
+            # 2 SSE + 2 JSON requests, counted, on the rebuilt engine; the
+            # same on the directly built one. Random weights mostly choose
+            # ids past the byte tokenizer's 256, which decode to no text,
+            # so the greedy token ids are compared as well.
+            async def four(model, prov):
+                _gate_first_step(prov.engine, len(prompts))
+                reqs, build = [], prov._build_genrequest
+
+                def recorded(payload):
+                    reqs.append(build(payload))
+                    return reqs[-1]
+                prov._build_genrequest = recorded
+                out = await asyncio.gather(*[
+                    post(session, port, model, s, p)
+                    for p, s in zip(prompts, (True, False, True, False))])
+                del prov._build_genrequest
+                return out, sorted((r.prompt_ids, r.generated) for r in reqs)
+            for fn in ks.all_wrappers():
+                reset_launches(fn)
+            engine.decode_steps = engine.prefill_calls = 0
+            engine.prefill_one_token_calls = 0
+            rebuilt, rebuilt_ids = await four("gw/local", provider)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in ks.all_wrappers()}
+            bodies = {fn.__name__: dict(fn.body_launches)
+                      for fn in ks.all_wrappers()}
+            steps = {"decode_steps": engine.decode_steps,
+                     "prefill_calls": engine.prefill_calls,
+                     "prefill_one_token_calls":
+                     engine.prefill_one_token_calls}
+            direct_out, direct_ids = await four("gw/direct", direct)
+            async with session.get(f"http://127.0.0.1:{port}/v1/models/"
+                                   f"AsOpenCodeFormat") as resp:
+                opencode = await resp.json()
+
+            # The retired engine closes after the grace period, and the
+            # card's memory falls by at least its weights.
+            gc.collect()
+            both_bytes = torch.cuda.memory_allocated()
+            check(old.params is not None,
+                  f"{what}: the retired engine closed before the rebuild "
+                  f"ended; raise CKPT_RETIRE_S")
+            t_wait = time.monotonic()
+            while old.params is not None \
+                    and time.monotonic() - t_wait < CKPT_RETIRE_S + 30:
+                await asyncio.sleep(0.1)
+            check(old.params is None,
+                  f"{what}: the retired engine was not closed")
+            gc.collect()
+            after_bytes = torch.cuda.memory_allocated()
+        mc = engine.model_cfg
+        del engine, provider, direct
+    finally:
+        ProviderRegistry.RETIRE_AFTER_S = retire_s
+        await runner.cleanup()
+        tmp.cleanup()
+
+    texts = [r["text"] for r in rebuilt]
+    check(all(r["status"] == 200 for r in rebuilt + direct_out),
+          f"{what}: a request failed: {rebuilt + direct_out}")
+    check(texts == [r["text"] for r in direct_out],
+          f"{what}: the rebuilt engine's text differs from the directly "
+          f"built one's: {texts} vs {[r['text'] for r in direct_out]}")
+    check(rebuilt_ids == direct_ids and len(rebuilt_ids) == len(prompts)
+          and all(ids for _, ids in rebuilt_ids),
+          f"{what}: the rebuilt engine's greedy tokens differ from the "
+          f"directly built one's: {rebuilt_ids} vs {direct_ids}")
+    body_launched = body_name(0, 1, False, mc.head_dim,
+                              mc.n_heads // mc.n_kv_heads)
+    check_launches(ks, what, "paged", body_launched, mc.n_layers, steps,
+                   launches, bodies)
+    listed = opencode["llmgateway"]["models"]
+    check("gw/local" in listed and "gw/direct" in listed,
+          f"{what}: AsOpenCodeFormat lists {sorted(listed)}")
+    freed = both_bytes - after_bytes
+    check(freed >= old_bytes,
+          f"{what}: memory_allocated fell by {freed} bytes when the retired "
+          f"engine closed, less than its {old_bytes} bytes of weights")
+    load = res["rebuild_load"]
+    res.update(
+        generated_tokens=[len(ids) for _, ids in rebuilt_ids],
+        launches=launches, body_launches=bodies, **steps,
+        retired_param_bytes=old_bytes, allocated_both_bytes=both_bytes,
+        allocated_after_close_bytes=after_bytes, freed_bytes=freed,
+        load_s=load["seconds"], read_s=load["read_s"],
+        h2d_gbps=load["bytes"] / 1e9 / load["seconds"],
+        note="load, read, GB/s, RSS and first-request wall are information")
+    emit(res)
+    return res
+
+
+def checkpoint_phase(torch, ks, card: str) -> dict:
+    """Phase 10: a tinyllama-1.1b checkpoint through the config API."""
+    t0 = time.monotonic()
+    out = asyncio.run(_checkpoint_serve(torch, ks, card))
+    _freed(torch, "checkpoint", t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the port's bench tool, short
 # ---------------------------------------------------------------------------
 
 def bench_phase(torch) -> dict:
@@ -2795,6 +3116,9 @@ def main(argv=()) -> int:
         t0 = time.monotonic()
         gateway_phase(torch, ks, smi)
         seconds["gateway"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        checkpoint_phase(torch, ks, smi)
+        seconds["checkpoint"] = time.monotonic() - t0
         t0 = time.monotonic()
         bench_phase(torch)
         seconds["bench"] = time.monotonic() - t0

@@ -1,11 +1,15 @@
-"""Config loading with validation (the load half of the JAX package's
-``config/loader.py``; hot reload and the raw-text editor come with the
-config editor API). The files are JSON with comments and trailing commas
-(utils/json5lite.py).
+"""Config loading with validation, validate-then-swap hot reload and
+raw-text access for the config editor (counterpart of the JAX package's
+``config/loader.py``). The files are JSON with comments and trailing commas
+(utils/json5lite.py): text that the JAX package's ``json5`` takes beyond
+that (unquoted keys, single quotes) is refused here.
 
 Load + validate both files at startup with the semantic cross-checks (every
-rule's provider must exist, the fallback provider must exist). Library code
-raises :class:`ConfigError`; the entry point decides process fate.
+rule's provider must exist, the fallback provider must exist). A reload or
+an editor save builds and validates a whole new snapshot before swapping it
+in, so the loader never holds a broken config; a save writes the file only
+after its text validated. Library code raises :class:`ConfigError`; the
+entry point decides process fate.
 """
 from __future__ import annotations
 
@@ -98,8 +102,9 @@ def resolve_api_key(details: ProviderDetails) -> str | None:
 
 
 class ConfigLoader:
-    """Owns the validated provider map and fallback rules. Readers get an
-    immutable snapshot reference."""
+    """Owns the validated provider map and fallback rules, with hot reload.
+    Readers get an immutable snapshot reference; a reload swaps in a whole
+    new validated snapshot under the lock."""
 
     def __init__(self, config_dir: Path | str = ".",
                  fallback_provider: str | None = None):
@@ -108,6 +113,8 @@ class ConfigLoader:
         self._lock = threading.Lock()
         self._providers: dict[str, ProviderDetails] = {}    # guarded-by: _lock
         self._rules: dict[str, ModelFallbackConfig] = {}    # guarded-by: _lock
+        # Bumped on every successful (re)load or save.
+        self._version = 0           # guarded-by: _lock
         self.load()
 
     @property
@@ -117,6 +124,13 @@ class ConfigLoader:
     @property
     def rules_path(self) -> Path:
         return self.config_dir / RULES_FILE
+
+    def _path(self, which: str) -> Path:
+        if which == "providers":
+            return self.providers_path
+        if which == "rules":
+            return self.rules_path
+        raise ValueError(f"unknown config file {which!r}")
 
     def _read_config(self, path: Path) -> Any:
         try:
@@ -136,6 +150,7 @@ class ConfigLoader:
         with self._lock:
             self._providers = providers
             self._rules = rules
+            self._version += 1
         logger.info("config loaded: %d providers, %d gateway models",
                     len(providers), len(rules))
 
@@ -148,3 +163,65 @@ class ConfigLoader:
     def rules(self) -> dict[str, ModelFallbackConfig]:
         with self._lock:
             return self._rules
+
+    @property
+    def version(self) -> int:
+        with self._lock:
+            return self._version
+
+    # -- hot reload (validate, then swap; never partial) ---------------------
+    def reload_providers(self) -> tuple[bool, str | None]:
+        """Re-read providers.json: (True, None) after swapping it in, or
+        (False, reason) with the old snapshot kept."""
+        try:
+            providers = parse_providers(self._read_config(self.providers_path))
+            cross_validate(providers, self.rules, self.fallback_provider)
+        except ConfigError as e:
+            logger.error("providers reload rejected: %s", e)
+            return False, str(e)
+        with self._lock:
+            self._providers = providers
+            self._version += 1
+        logger.info("providers hot-reloaded: %d providers", len(providers))
+        return True, None
+
+    def reload_rules(self) -> tuple[bool, str | None]:
+        """Re-read the rules, validated against the current providers."""
+        try:
+            rules = parse_rules(self._read_config(self.rules_path))
+            cross_validate(self.providers, rules, None)
+        except ConfigError as e:
+            logger.error("rules reload rejected: %s", e)
+            return False, str(e)
+        with self._lock:
+            self._rules = rules
+            self._version += 1
+        logger.info("rules hot-reloaded: %d gateway models", len(rules))
+        return True, None
+
+    # -- raw text for the config editor (comments kept) ----------------------
+    def read_raw(self, which: str) -> str:
+        """The text of ``"providers"`` or ``"rules"`` as it is on disk."""
+        return self._path(which).read_text()
+
+    def write_raw(self, which: str, text: str) -> None:
+        """Validate ``text`` (parse, schema, cross-checks), then write it
+        verbatim, comments kept, and swap in its snapshot. Raises
+        ConfigError (or ValueError on a syntax error) with the file and the
+        snapshot unchanged."""
+        path = self._path(which)
+        parsed = json5lite.loads(text)      # raises on a syntax error
+        if which == "providers":
+            providers = parse_providers(parsed)
+            cross_validate(providers, self.rules, self.fallback_provider)
+            path.write_text(text)
+            with self._lock:
+                self._providers = providers
+                self._version += 1
+        else:
+            rules = parse_rules(parsed)
+            cross_validate(self.providers, rules, None)
+            path.write_text(text)
+            with self._lock:
+                self._rules = rules
+                self._version += 1

@@ -8,7 +8,7 @@ present, then the process environment (env wins).
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 
@@ -42,13 +42,15 @@ def _as_bool(val: str | None, default: bool = False) -> bool:
 @dataclass
 class Settings:
     """Resolved gateway settings (the fields the port's server reads; the
-    JAX package's CORS, debug and tracing settings come with those
-    layers). All fields overridable via environment."""
+    JAX package's debug and tracing settings come with those layers). All
+    fields overridable via environment."""
 
     gateway_api_key: str | None = None
     fallback_provider: str = "openrouter"
     gateway_host: str = "0.0.0.0"
     gateway_port: int = 9100
+    # CORS origins (ALLOWED_ORIGINS, comma-separated); "*" allows any.
+    allowed_origins: list[str] = field(default_factory=lambda: ["*"])
     log_file_limit: int = 15
     log_chat_messages: bool = False
     usage_retention_days: int = 180
@@ -67,6 +69,9 @@ class Settings:
         merged = _load_dotenv(base / ".env")
         merged.update(os.environ)
 
+        origins = [o.strip() for o in merged.get("ALLOWED_ORIGINS", "*")
+                   .split(",") if o.strip()] or ["*"]
+
         def _path(key: str, default: str) -> Path:
             p = Path(merged.get(key, default))
             return p if p.is_absolute() else base / p
@@ -76,6 +81,7 @@ class Settings:
             fallback_provider=merged.get("FALLBACK_PROVIDER", "openrouter"),
             gateway_host=merged.get("GATEWAY_HOST", "0.0.0.0"),
             gateway_port=int(merged.get("GATEWAY_PORT", "9100")),
+            allowed_origins=origins,
             log_file_limit=int(merged.get("LOG_FILE_LIMIT", "15")),
             usage_retention_days=int(merged.get("USAGE_RETENTION_DAYS",
                                                 "180")),

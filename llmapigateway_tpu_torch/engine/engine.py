@@ -64,6 +64,11 @@ in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
   prefill at the match; a releasing slot indexes its written blocks. The
   knob is inert on the contiguous layout and for windowed models.
 
+* **Weights** come from an HF safetensors checkpoint (``model_path``,
+  engine/checkpoint.py, its architecture from the checkpoint's
+  ``config.json`` unless a ``preset`` names it) or, with a ``preset`` alone,
+  are random from a seed.
+
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking
 for ``cuda`` where there is none raises instead of running on the CPU.
 Knobs of the JAX engine that are not ported yet are refused at build with
@@ -87,6 +92,7 @@ from ..models.llama import KVCache, forward_hidden, head_logits
 from ..ops import _kernels
 from ..ops.flash_attention import make_cache_attention_fn
 from ..ops.paged_attention import PagedKVCache, make_paged_attention_fn
+from .checkpoint import _config_from_checkpoint, load_checkpoint
 from .decode_graphs import DecodeGraphs, LagOneFetch, upload
 from .paged import PageAllocator
 from .prefix_cache import RadixPrefixCache
@@ -213,8 +219,8 @@ def _refuse_unbuilt_geometry(cfg: LocalEngineConfig, model_cfg: ModelConfig,
     why = _kernels.unsupported_geometry(model_cfg.head_dim, model_cfg.n_heads,
                                         model_cfg.n_kv_heads)
     if why is not None:
-        raise ValueError(f"preset {cfg.preset!r} cannot run on the card: "
-                         f"{why}")
+        raise ValueError(f"model {cfg.preset or cfg.model_path!r} cannot run "
+                         f"on the card: {why}")
 
 
 class InferenceEngine:
@@ -223,14 +229,20 @@ class InferenceEngine:
     def __init__(self, engine_cfg: LocalEngineConfig,
                  device: str | torch.device = "cuda",
                  model_cfg: ModelConfig | None = None):
-        """``model_cfg`` overrides the preset's architecture (as in the JAX
-        engine; the bench's long-context and window rungs use it)."""
+        """``model_cfg`` overrides the architecture (as in the JAX engine;
+        the bench's long-context and window rungs use it). Otherwise a
+        ``preset`` gives it, or the ``config.json`` of ``model_path``. With
+        ``model_path`` the weights are the checkpoint's (checked against the
+        architecture before any tensor is read), else random from a seed."""
         self.cfg = engine_cfg
-        if engine_cfg.model_path:
-            raise not_ported("model_path (checkpoint loading)", "checkpoints")
-        if not engine_cfg.preset:
-            raise ValueError("local engine needs 'preset'")
-        model_cfg = model_cfg or get_preset(engine_cfg.preset)
+        if model_cfg is None:
+            if engine_cfg.preset:
+                model_cfg = get_preset(engine_cfg.preset)
+            elif engine_cfg.model_path:
+                model_cfg = _config_from_checkpoint(engine_cfg.model_path)
+            else:
+                raise ValueError(
+                    "local engine needs 'preset' or 'model_path'")
         _refuse_unported(engine_cfg, model_cfg)
         _refuse_unbuilt_geometry(engine_cfg, model_cfg, device)
         self.model_cfg = model_cfg
@@ -259,15 +271,25 @@ class InferenceEngine:
         self._burst_depths = tuple(sorted(depths))
         # A page larger than S would waste a whole-page tail per slot.
         self.kv_page = max(1, min(engine_cfg.kv_page_size, self.S))
-        self.tokenizer = load_tokenizer(engine_cfg.tokenizer_path or None,
-                                        vocab_size=model_cfg.vocab_size)
+        self.tokenizer = load_tokenizer(
+            engine_cfg.tokenizer_path or engine_cfg.model_path or None,
+            vocab_size=model_cfg.vocab_size)
 
         t0 = time.monotonic()
         self._forward = forward_fn(model_cfg)
-        # Random weights from a fixed seed (the repo ships no checkpoint).
-        gen = torch.Generator(device=self.device).manual_seed(0)
-        self.params = init_fn(model_cfg)(model_cfg, gen, dtype=self.dtype,
-                                         device=self.device)
+        self.load_stats: dict = {}
+        if engine_cfg.model_path:
+            self.params = load_checkpoint(
+                engine_cfg.model_path, model_cfg, dtype=self.dtype,
+                device=self.device, stats=self.load_stats)
+            logger.info("checkpoint %s: %.2f GB in %.1fs",
+                        engine_cfg.model_path, self.load_stats["bytes"] / 1e9,
+                        self.load_stats["seconds"])
+        else:
+            # Random weights from a fixed seed.
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            self.params = init_fn(model_cfg)(model_cfg, gen, dtype=self.dtype,
+                                             device=self.device)
         self._init_state()
         logger.info("engine build on %s: %.1fs", self.device,
                     time.monotonic() - t0)
@@ -502,6 +524,20 @@ class InferenceEngine:
         while not self._queue.empty():
             self._queue.get_nowait().out_queue.put_nowait(
                 Delta(error="engine stopped"))
+
+    # Everything the engine holds on the device, or pinned for it.
+    _DEVICE_STATE = ("params", "cache", "_graphs", "_fetch", "_pending",
+                     "_rng", "_d_counts", "_d_tokens", "_d_lengths",
+                     "_d_active", "_d_samp", "_d_table", "_slot_ids")
+
+    async def close(self) -> None:
+        """Stop, then drop every device and pinned buffer the engine holds
+        (weights, KV cache, decode graphs and their pool, static buffers,
+        the generator), so their memory returns to the allocator even while
+        something still refers to the engine. The engine serves no more."""
+        await self.stop()
+        for name in self._DEVICE_STATE:
+            setattr(self, name, None)
 
     async def submit(self, req: GenRequest) -> None:
         """Admit a request; raises EngineOverloaded when the queue is full

@@ -9,12 +9,17 @@ Two implementations behind one interface:
 * :class:`ByteTokenizer` — dependency-free byte-level fallback used by tests
   and random-init presets: ids 0..255 are raw bytes, specials above.
 
+A model directory with a ``tokenizer.json`` needs both ``tokenizers`` and
+``jinja2``: without either, building the tokenizer raises naming the
+package. A directory without one falls back to bytes with a warning.
+
 Detokenization for SSE streaming is **incremental and UTF-8-safe**: a token
 may end mid-multibyte-character, so :class:`IncrementalDetokenizer` buffers
 undecodable tails until the next token completes them.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import logging
 from pathlib import Path
@@ -78,8 +83,11 @@ class HFTokenizer:
     """HF tokenizer.json + chat template from tokenizer_config.json."""
 
     def __init__(self, model_dir: str | Path):
-        from tokenizers import Tokenizer
         model_dir = Path(model_dir)
+        Tokenizer = _require("tokenizers", model_dir).Tokenizer
+        # The chat template renders at every request: a missing jinja2
+        # fails the build, not the first request.
+        _require("jinja2", model_dir)
         self._tok = Tokenizer.from_file(str(model_dir / "tokenizer.json"))
         self.vocab_size = self._tok.get_vocab_size()
 
@@ -127,6 +135,18 @@ class HFTokenizer:
         return tmpl.render(messages=msgs,
                            add_generation_prompt=add_generation_prompt,
                            bos_token="", eos_token="")
+
+
+def _require(package: str, model_dir: Path):
+    """Import ``package`` for the tokenizer of ``model_dir``; without it the
+    build fails naming the package (never a silent byte fallback, which
+    would serve the checkpoint with the wrong token ids)."""
+    try:
+        return importlib.import_module(package)
+    except ImportError as e:
+        raise RuntimeError(
+            f"{model_dir / 'tokenizer.json'} needs the {package!r} package, "
+            f"which this host does not have") from e
 
 
 def _jinja_raise(message):

@@ -271,7 +271,7 @@ class LocalProvider(Provider):
                  "context_length": self.engine.S}]
 
     async def close(self) -> None:
-        await self.engine.stop()
+        await self.engine.close()
 
 
 def make_local_provider(name: str, details: ProviderDetails,

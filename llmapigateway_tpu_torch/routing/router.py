@@ -62,36 +62,88 @@ TITLE = "LLM API Gateway (TPU)"
 
 
 class ProviderRegistry:
-    """Builds and caches the providers from the config. ``local`` providers
-    are built through a pluggable factory (which fixes their device); a
-    build runs in a worker thread so the event loop keeps serving while an
-    engine initializes."""
+    """Builds and caches the providers from the live config, each until its
+    config entry changes. ``local`` providers are built through a pluggable
+    factory (which fixes their device). A build runs in a worker thread
+    outside the registry lock, so the event loop keeps serving, and other
+    providers answer, while an engine loads; a per-name lock stops two
+    requests building the same provider. A provider whose entry changed is
+    retired: closed ``RETIRE_AFTER_S`` later, when no request it started
+    can still be running."""
+
+    # Outlives the longest request an old provider can still be serving
+    # (the 300 s transport cap).
+    RETIRE_AFTER_S = 330.0
 
     def __init__(self, loader: ConfigLoader,
                  local_factory: Callable[[str, ProviderDetails], Provider] | None = None):
         self._loader = loader
         self._local_factory = local_factory
-        self._cache: dict[str, Provider] = {}
+        # name -> (fingerprint of its config entry, provider)
+        self._cache: dict[str, tuple[str, Provider]] = {}   # guarded-by: _lock
         self._lock = asyncio.Lock()
+        self._name_locks: dict[str, asyncio.Lock] = {}      # guarded-by: _lock
+        self._retiring: set[asyncio.Task] = set()           # guarded-by: loop
+        self._closed = False
 
     async def get(self, name: str) -> Provider | None:
         details = self._loader.providers.get(name)
         if details is None:
             return None
+        fingerprint = details.model_dump_json()
         async with self._lock:
-            provider = self._cache.get(name)
-            if provider is None:
-                try:
-                    provider = await asyncio.to_thread(self._build, name,
-                                                       details)
-                except (ValueError, RuntimeError):
-                    # A refused knob or a missing device: the target is
-                    # unavailable and the chain moves on; the log says why.
-                    logger.exception("provider %s failed to build", name)
-                    return None
-                if provider is not None:
-                    self._cache[name] = provider
+            cached = self._cache.get(name)
+            if cached and cached[0] == fingerprint:
+                return cached[1]
+            name_lock = self._name_locks.setdefault(name, asyncio.Lock())
+        async with name_lock:
+            async with self._lock:
+                cached = self._cache.get(name)
+                if cached and cached[0] == fingerprint:
+                    return cached[1]
+                if cached:
+                    # The entry changed: requests in flight may still use
+                    # the old provider; close it once they cannot.
+                    self._retire(cached[1])
+                    del self._cache[name]
+            try:
+                provider = await asyncio.to_thread(self._build, name, details)
+            except (ValueError, RuntimeError, OSError):
+                # A refused knob, a missing device or package, a missing or
+                # truncated checkpoint, the card out of memory: the target is
+                # unavailable and the chain moves on; the log says why.
+                logger.exception("provider %s failed to build", name)
+                return None
+            if provider is not None:
+                async with self._lock:
+                    if self._closed:
+                        # Closed while this build ran: do not keep a live
+                        # provider in a dead cache.
+                        await provider.close()
+                        return None
+                    self._cache[name] = (fingerprint, provider)
             return provider
+
+    def instantiated(self) -> list[tuple[str, Provider]]:
+        """The providers built so far (building none)."""
+        return [(name, prov) for name, (_, prov) in self._cache.items()]
+
+    def local_providers(self) -> list[Provider]:
+        """The built providers backed by an in-process engine."""
+        return [prov for _, prov in self.instantiated()
+                if getattr(prov, "engine", None) is not None]
+
+    def _retire(self, provider: Provider) -> None:
+        async def _close_later() -> None:
+            try:
+                await asyncio.sleep(self.RETIRE_AFTER_S)
+                await provider.close()
+            except asyncio.CancelledError:
+                await provider.close()
+                raise
+        task = asyncio.get_running_loop().create_task(_close_later())
+        self._retiring.add(task)
+        task.add_done_callback(self._retiring.discard)
 
     def _build(self, name: str, details: ProviderDetails) -> Provider | None:
         if details.type == "local":
@@ -105,7 +157,14 @@ class ProviderRegistry:
 
     async def close(self) -> None:
         async with self._lock:
-            for provider in self._cache.values():
+            self._closed = True
+            for task in list(self._retiring):
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+            for _, provider in self._cache.values():
                 await provider.close()
             self._cache.clear()
 

@@ -4,9 +4,10 @@ leniently (utils/json5lite.py: comments and trailing commas). Streaming
 responses are committed (200, SSE headers) only after routing has produced
 a primed stream, so a failure before the first token still falls back.
 
-The client's ``x-request-timeout-ms`` header (or ``timeout_ms`` body
-field) becomes the request's deadline budget and ``x-slo-ttft-ms`` /
-``x-slo-tpot-ms`` its SLO targets. An exhausted budget answers **504**
+The request id (server/middleware.py) goes upstream with every attempt
+and comes back on the response. The client's ``x-request-timeout-ms``
+header (or ``timeout_ms`` body field) becomes the request's deadline budget
+and ``x-slo-ttft-ms`` / ``x-slo-tpot-ms`` its SLO targets. An exhausted budget answers **504**
 with the partial-attempt log; an all-overloaded or all-breaker-open chain
 **429** with a numeric ``Retry-After`` from the engine's telemetry or the
 breakers' cooldowns; anything else **503**. Each attempt gets a usage
@@ -77,9 +78,15 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
         return web.json_response(result.data)
 
     assert isinstance(result, StreamingCompletion)
-    resp = web.StreamResponse(status=200, headers={
-        "Content-Type": "text/event-stream", "Cache-Control": "no-cache",
-        "X-Accel-Buffering": "no", "Connection": "keep-alive"})
+    headers = {"Content-Type": "text/event-stream",
+               "Cache-Control": "no-cache", "X-Accel-Buffering": "no",
+               "Connection": "keep-alive"}
+    # A prepared response passes the request-id middleware by; set it here.
+    if request.get("request_id"):
+        headers["x-request-id"] = request["request_id"]
+    resp = web.StreamResponse(status=200, headers=headers)
+    # The status on the wire, for the request log should the stream die.
+    request["prepared_status"] = 200
     await resp.prepare(request)
     try:
         async for frame in result.frames:

@@ -1,4 +1,4 @@
-"""Tools that drive the port's engine and kernels. Three are the
+"""Tools that drive the port's engine and kernels. Five are the
 counterparts of the JAX package's scripts of the same name in ``tools/``
 (which is left as it is):
 
@@ -8,17 +8,22 @@ counterparts of the JAX package's scripts of the same name in ``tools/``
   stream and the sort alone.
 * ``profile_engine_burst`` — the engine's own decode bursts, host enqueue
   split from the final fetch.
+* ``make_synthetic_checkpoint`` — a full-size HF-style safetensors
+  checkpoint of a preset, random weights from a seed.
+* ``profile_checkpoint_load`` — a checkpoint's load into the engine
+  (seconds, bytes, GB/s, host RSS) and one request from a cold engine.
 
 One more, ``profile_split``, sweeps the decode kernels' key split at one
 head geometry, on the card only and without a JAX counterpart; it and
-``chip_smoke.py`` share one device timer (``_timing``).
+``chip_smoke.py`` share one device timer (``_timing``). ``bench`` is the
+counterpart of the root ``bench.py``.
 
-Each of the first three runs as ``python -m
-llmapigateway_tpu_torch.tools.<name>`` on the card (``--device cuda``, the
-default) or on the CPU (``--device cpu``, at a tiny preset or small dims),
-prints its per-variant times to stderr and one JSON
-object of results as its last line of standard output, and returns the
-results from ``main(argv)``. Times on the card are CUDA-event times around
+Each runs as ``python -m llmapigateway_tpu_torch.tools.<name>``, prints
+its progress to stderr and one JSON object of results as its last line of
+standard output, and returns the results from ``main(argv)``. The
+profilers run on the card (``--device cuda``, the default) or on the CPU
+(``--device cpu``, at a tiny preset or small dims); the checkpoint writer
+runs on the host. Times on the card are CUDA-event times around
 whole bursts, best of ``--reps`` after a warm-up call; on the CPU they are
 host-clock times and say nothing of the card.
 """

@@ -1,6 +1,8 @@
 """The port's boundary: ``llmapigateway_tpu_torch`` and ``chip_smoke.py``
-import neither JAX, nor the JAX package, nor httpx (the card host may lack
-it; the port's HTTP client is aiohttp's); entry points never fall back to the
+import neither JAX, nor the JAX package, nor httpx, safetensors, ml_dtypes
+or json5 (the card host may lack them; the port's HTTP client is aiohttp's,
+and it reads safetensors and its config files itself); the UI's static
+files lie beside the package; entry points never fall back to the
 CPU when the card is missing; the smoke exits non-zero without a card or
 without the package; the config reader accepts the repo's example files."""
 import ast
@@ -41,7 +43,8 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _forbidden(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "llmapigateway_tpu", "tools", "httpx")
+    return root in ("jax", "jaxlib", "llmapigateway_tpu", "tools", "httpx",
+                    "safetensors", "ml_dtypes", "json5")
 
 
 def test_the_scan_covers_the_ported_tools():
@@ -49,16 +52,32 @@ def test_the_scan_covers_the_ported_tools():
              for p in PORT_DIR.rglob("*.py")}
     assert {"tools/__init__.py", "tools/profile_insert.py",
             "tools/profile_decode.py",
-            "tools/profile_engine_burst.py"} <= names
+            "tools/profile_engine_burst.py",
+            "tools/make_synthetic_checkpoint.py",
+            "tools/profile_checkpoint_load.py",
+            "utils/safetensors_lite.py"} <= names
 
 
 @pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")) + [SMOKE],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_imports(path):
     """Every module of the port (its ``tools/`` included) and the smoke:
-    no JAX, no JAX package, not the JAX package's ``tools/``, no httpx."""
+    no JAX, no JAX package, not the JAX package's ``tools/``, no httpx,
+    safetensors, ml_dtypes or json5."""
     bad = [n for n in _imported_modules(path) if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_ui_files_lie_beside_the_package():
+    """The app serves the editor and stats pages from the port's own copy
+    (``STATIC_DIR``), which holds every file of the JAX package's."""
+    from llmapigateway_tpu_torch.server.app import STATIC_DIR
+    assert STATIC_DIR == PORT_DIR / "static"
+    jax_static = REPO / "llmapigateway_tpu" / "static"
+    names = sorted(p.name for p in jax_static.iterdir())
+    assert len(names) == 6
+    assert sorted(p.name for p in STATIC_DIR.iterdir()) == names
+    assert all((STATIC_DIR / n).stat().st_size > 0 for n in names)
 
 
 def test_default_device_is_cuda_and_never_falls_back():

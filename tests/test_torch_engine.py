@@ -592,7 +592,8 @@ def test_emission_matches_jax_engine(engines, stop, max_tokens):
     ({"spec_draft_len": 3}, "speculative decoding"),
     ({"quant": "int8"}, "weight quantization"),
     ({"mesh": {"model": 2}}, "parallelism"),
-    ({"model_path": "/nonexistent"}, "checkpoints"),
+    # A checkpoint's knobs are refused before its files are opened.
+    ({"model_path": "/nonexistent", "mesh": {"model": 2}}, "parallelism"),
     ({"disaggregation": {"enabled": True}}, "disaggregation"),
     ({"preset": "tiny-mistral-test", "mesh": {"model": 2}}, "parallelism"),
     ({"preset": "tiny-moe-test"}, "MoE"),

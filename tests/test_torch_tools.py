@@ -142,3 +142,55 @@ def test_full_step_gives_the_engine_greedy_tokens():
             step, engine.params, cache, tokens, lengths, active, samp,
             torch.Generator().manual_seed(0), 6)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_synthetic_checkpoint_tool_writes_what_the_jax_tool_writes(
+        tmp_path, capsys):
+    """The same HF names, shapes and config.json as the JAX tool's, in
+    several shards with an index, and the same JSON line."""
+    from llmapigateway_tpu.models.config import get_preset as jget_preset
+    from llmapigateway_tpu_torch.models.config import get_preset
+    from llmapigateway_tpu_torch.tools import make_synthetic_checkpoint as ms
+    from llmapigateway_tpu_torch.utils.safetensors_lite import safe_open
+    from tools import make_synthetic_checkpoint as jms
+    out = tmp_path / "qwen"
+    res = ms.main(["--preset", "tiny-qwen-test", "--out", str(out),
+                   "--dtype", "bfloat16", "--shard-gb", "0.00005"])
+    assert _last_json(capsys) == res
+    assert set(res) == {"preset", "out", "dtype", "total_gb", "shards",
+                        "gen_s"} and res["shards"] >= 2
+    assert json.loads((out / "config.json").read_text()) == \
+        jms._config_json(jget_preset("tiny-qwen-test"), "tiny-qwen-test")
+    index = json.loads((out / "model.safetensors.index.json").read_text())
+    shapes = {}
+    for shard in sorted(set(index["weight_map"].values())):
+        with safe_open(out / shard) as f:
+            for name in f.keys():
+                assert index["weight_map"][name] == shard
+                shapes[name] = f.shape(name)
+                assert f.dtype(name) == torch.bfloat16
+    assert shapes == dict(jms._hf_tensors(jget_preset("tiny-qwen-test")))
+    assert list(shapes) == [n for n, _ in ms._hf_tensors(
+        get_preset("tiny-qwen-test"))]
+
+
+def test_profile_checkpoint_load_on_the_cpu(tmp_path, capsys):
+    from llmapigateway_tpu_torch.tools import (make_synthetic_checkpoint,
+                                               profile_checkpoint_load)
+    out = tmp_path / "tiny"
+    make_synthetic_checkpoint.main(["--preset", "tiny-test", "--out",
+                                    str(out), "--shard-gb", "0.0002"])
+    res = profile_checkpoint_load.main([str(out), "--device", "cpu",
+                                        "--batch", "2", "--seq", "64",
+                                        "--tokens", "5", "--kv-quant",
+                                        "int8"])
+    assert _last_json(capsys) == res
+    # tiny-test in bf16: embed and lm_head 512 x 64, two layers.
+    n = 2 * 512 * 64 + 64 + 2 * (2 * 64 + 64 * 64 + 2 * 64 * 32
+                                 + 64 * 64 + 3 * 64 * 128)
+    assert res["bytes_read_gb"] == res["device_param_gb"] == 2 * n / 1e9
+    assert res["generated_tokens"] == 5 and res["kv_quant"] == "int8"
+    assert res["load_s"] > 0 and res["h2d_gbps"] > 0 and res["card"] is None
+    with pytest.raises(ValueError, match="weight quantization"):
+        profile_checkpoint_load.main([str(out), "--device", "cpu",
+                                      "--quant", "int8"])
