@@ -151,12 +151,41 @@ Phases, each printed as JSON lines:
              by at least its weights' bytes. Load seconds, host-to-device
              GB/s, the resident set the load added and the first request's
              wall are information.
-11. bench  — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
-             32 steps, 3 TTFT probes, its shared-prefix rung and its
-             ``--ttft-target 200`` rung: its JSON line, a positive value,
-             warm requests that ran fewer prefill calls than the cold one,
-             and the controller rung served through decode graphs.
-12. the ``kernels`` line (decode rows with the key split ``n_split`` and
+             The same checkpoint is then loaded with int4 weights: every
+             leaf equal to the shards' quantization on the host.
+11. quant  — quantized weights and the Mixtral family. The W4A8 kernel
+             (``csrc/w4a8_mm.cu``) against its plain version (unpack, then
+             ``torch._int_mm``) at llama-3-8b's projections (M 1, 8, 32 and
+             512) and mixtral-8x7b's experts (the dense form at decode, 8
+             experts over one shared activation block; capacity dispatch
+             at 256 rows an expert): int32 sums ``torch.equal``, bf16
+             outputs within one bf16 rounding; the int8 product
+             (``torch._int_mm``, rows padded to 17) ``torch.equal`` to the
+             exact product; device times beside the plain version,
+             ``torch._int_mm`` on the unpacked levels and the bound (packed
+             bytes at 3.35 TB/s or int8 operations at 1979 TOP/s). Then
+             serve runs, as in phase 7, of llama-3-8b (int8 weights, bf16
+             KV; int4 weights, int8 KV) and mixtral-8x7b at full width and
+             depth (the same two), each reporting its weight bytes against
+             the arithmetic (within 1%), the build's peak memory above
+             what it keeps (below what a full-precision tree adds) and the
+             quantized products' launches (int4: the W4A8 kernel 7 times
+             per layer per forward, the int8 head once); #1/#2 once per
+             layer per forward; then tinyllama-1.1b, qwen2-0.5b, gemma-7b,
+             mistral-7b (SWA ring) and phi-3-mini at int4 and the tied
+             gemma-2b at int8, the same way. mixtral-8x7b int8's decode
+             graphs replayed against eager as in phase 5. A synthetic mixtral-8x7b
+             checkpoint at full width and one layer (reduced depth),
+             loaded with int8: every leaf equal to the shards' host
+             quantization, one request served.
+12. bench  — the port's bench tool (``tools/bench.py``) at tinyllama-1.1b,
+             32 steps, 3 TTFT probes, its shared-prefix rung, its
+             ``--ttft-target 200`` rung and its ``--quant-rung`` (int8,
+             int8 + int8 KV, int4 + int8 KV): its JSON line, a positive
+             value, warm requests that ran fewer prefill calls than the
+             cold one, the controller rung served through decode graphs,
+             and the three quant arms with their speedups.
+13. the ``kernels`` line (decode rows with the key split ``n_split`` and
    workspace bytes of their timed launch), the nvidia-smi line, and last the contract line
    ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +195,7 @@ or without the package beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import asyncio
+import collections
 import functools
 import gc
 import json
@@ -457,7 +487,7 @@ ALIASED = dict(H=32, KV=8, Dh=128, page=256, NP=16, shared_pages=8,
 BENCH_ARGS = ["--preset", "tinyllama-1.1b", "--steps", "32",
               "--ttft-probes", "3", "--eight-b", "0", "--swa", "0",
               "--long-ctx", "0", "--second-preset", "", "--ttft-target",
-              "200"]
+              "200", "--quant-rung", "1"]
 FREED_BYTES_MAX = 2 ** 30
 SOURCES = {"paged": "paged_attention.cu", "contiguous": "flash_attention.cu"}
 REPLACES = {
@@ -729,7 +759,10 @@ class Kernels:
         return self.fn[(kind, layout)].__name__
 
     def all_wrappers(self):
-        return list(self.fn.values())
+        """The attention wrappers and the quantized products' wrappers
+        (ops/quant_mm.py: the int8 library product and the W4A8 kernel)."""
+        from llmapigateway_tpu_torch.ops import quant_mm
+        return list(self.fn.values()) + [quant_mm.int8_mm, quant_mm.w4a8_mm]
 
     def call(self, kind, layout, args, window=0, ppb=1):
         return self.fn[(kind, layout)](*args, **variant_kw(layout, window,
@@ -1379,6 +1412,10 @@ def replay_launches(torch, engine, n: int, greedy: bool) -> dict:
     delta = engine._graphs.graphs[(n, greedy)][2]
     recorded = {"decode_combine_kernel": 0}
     for wrapper, (k, bodies, splits) in delta.items():
+        if wrapper == "w4a8_mm":
+            recorded["w4a8_kernel"] = k
+        if not wrapper.endswith("_attention"):
+            continue        # the int8 product's cuBLAS kernels vary by name
         recorded[wrapper.replace("_attention", "_kernel")] = k
         recorded["decode_combine_kernel"] += sum(
             c for body, c in bodies.items() if splits[body]["n_split"] > 1)
@@ -1741,10 +1778,12 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
     layout = engine_cfg["kv_layout"]
     async with _Gateway({"local": engine_cfg}) as gw:
         t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
         provider = await gw.provider("local")
         engine = provider.engine
         torch.cuda.synchronize()
         build_s = time.monotonic() - t0
+        weights = quant_weights(torch, engine) if engine.quant else None
         n_layers = engine.model_cfg.n_layers
         window = engine.model_cfg.sliding_window
         cache_kind = (f"{type(engine.cache).__name__}"
@@ -1775,6 +1814,7 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
             reset_launches(fn)
         engine.decode_steps = engine.prefill_calls = 0
         engine.prefill_one_token_calls = 0
+        engine.prefill_shapes.clear()
         _reset_pipeline(engine)
         t1 = time.monotonic()
         async with aiohttp.ClientSession() as session:
@@ -1789,6 +1829,7 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
                  "prefill_calls": engine.prefill_calls,
                  "prefill_one_token_calls":
                  engine.prefill_one_token_calls}
+        shapes = dict(engine.prefill_shapes)
         pipeline = _pipeline(engine)
         mc = engine.model_cfg
         geometry = {"kv_ppb": engine.kv_ppb,
@@ -1825,6 +1866,10 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
     check_launches(ks, f"serve {tag}", layout, body, n_layers, steps,
                    launches, bodies)
     check_pipeline(f"serve {tag}", pipeline)
+    forms = None
+    if weights is not None:
+        forms = check_quant_run(f"serve {tag}", mc, weights, steps, shapes,
+                                launches, bodies)
     ppb_req = engine_cfg.get("kv_pages_per_block", 1)
     if layout == "paged":
         check(geometry["kv_ppb"] == (1 if geometry["swa_ring_pages"]
@@ -1852,7 +1897,9 @@ async def _serve(torch, ks, card: str, tag: str, engine_cfg: dict,
            "decode_tok_per_s": [u.get("tokens_per_sec") for u in usages],
            "engine_build_s": build_s, "wall_s": wall_s,
            "launches": launches, "body_launches": bodies, **steps,
-           "pipeline": pipeline,
+           "pipeline": pipeline, "weights": weights,
+           "prefill_shapes": [[*k, n] for k, n in sorted(shapes.items())],
+           "mlp_forms": forms,
            "note": "TTFT and tok/s are information only"}
     emit(res)
     res["texts"] = [r["text"] for r in results]
@@ -2755,6 +2802,10 @@ async def _checkpoint_serve(torch, ks, card: str) -> dict:
                   f"{what}: the retired engine was not closed")
             gc.collect()
             after_bytes = torch.cuda.memory_allocated()
+            # The same checkpoint loaded with int4 weights (phase 11's
+            # check: every leaf the shards' host quantization).
+            res["int4_load"] = await _quantized_load(
+                torch, ckpt, "int4", QUANT_CKPT_ENGINE, f"{what} int4")
         mc = engine.model_cfg
         del engine, provider, direct
     finally:
@@ -2805,7 +2856,468 @@ def checkpoint_phase(torch, ks, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the port's bench tool, short
+# Phase 11: quantized weights (W8A8, W4A8) and the Mixtral family
+# ---------------------------------------------------------------------------
+
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 (NVIDIA data sheet)
+# No Pallas kernel: the W4A8 kernel replaces XLA's mixed s8 x s4
+# dot_general of the JAX package's quantized projections.
+W4A8_REPLACES = ("llmapigateway_tpu/models/quant.py:171 (XLA s8 x s4 "
+                 "dot_general; no Pallas kernel)")
+MIXTRAL = {"preset": "mixtral-8x7b", "max_batch_size": 8,
+           "max_seq_len": 4096, "prefill_chunk": 512, "mesh": {}}
+# The W4A8 kernel's shapes: llama-3-8b's projections (K, N) at decode rows
+# 1, 8 and 32 and a 512-token prefill chunk; mixtral-8x7b's experts at
+# decode (the dense all-experts form: one activation block shared by the 8
+# experts for w1/w3, per-expert rows for w2) and in a 512-token chunk's
+# capacity dispatch (256 rows an expert).
+LLAMA_PROJ = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+              "wg/wu": (4096, 14336), "wd": (14336, 4096)}
+W4A8_ROWS = (
+    [("llama-3-8b", proj, 1, M, K, N, False)
+     for proj, (K, N) in LLAMA_PROJ.items() for M in (1, 8, 32, 512)]
+    + [("mixtral-8x7b", "w1/w3 dense", 8, M, 4096, 14336, True)
+       for M in (1, 8, 32)]
+    + [("mixtral-8x7b", "w2", 8, M, 14336, 4096, False) for M in (1, 8, 32)]
+    + [("mixtral-8x7b", "w1/w3 dispatch", 8, 256, 4096, 14336, False),
+       ("mixtral-8x7b", "w2 dispatch", 8, 256, 14336, 4096, False)])
+# The int8 product (torch._int_mm, rows padded to 17 below 17): llama-3-8b's
+# MLP shapes and mixtral-8x7b's eight experts' w1 as one [D, E*F] product.
+INT8_ROWS = [("llama-3-8b", "wg/wu", M, 4096, 14336) for M in (1, 32, 512)] \
+    + [("llama-3-8b", "wd", M, 14336, 4096) for M in (1, 32, 512)] \
+    + [("mixtral-8x7b", "w1 x 8 experts", 32, 4096, 8 * 14336)]
+QUANT_SERVE_RUNS = [
+    ("llama-paged-w8", {**LLAMA, **PAGED, "prefix_cache": False,
+                        "kv_quant": "", "quant": "int8"},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("llama-paged-w4-kv8", {**LLAMA, **PAGED, "prefix_cache": False,
+                            "kv_quant": "int8", "quant": "int4"},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("mixtral-paged-w8", {**MIXTRAL, **PAGED, "prefix_cache": False,
+                          "kv_quant": "", "quant": "int8"},
+     ("chars", LLAMA_PROMPT_CHARS)),
+    ("mixtral-paged-w4-kv8", {**MIXTRAL, **PAGED, "prefix_cache": False,
+                              "kv_quant": "int8", "quant": "int4"},
+     ("chars", LLAMA_PROMPT_CHARS)),
+]
+# Every other dense preset's head geometry and block served quantized (the
+# W4A8 kernel at its projections' shapes; a tied model's int8 head copy;
+# the window bodies, the SWA ring): serve runs of phase 7 with weights at
+# int4 (int8 for the tied gemma-2b).
+QUANT_PRESET_RUNS = [
+    (tag.replace("-ring", f"-w{quant[-1]}-ring") if tag.endswith("-ring")
+     else f"{tag}-w{quant[-1]}", {**cfg, "quant": quant}, spec)
+    for tag, cfg, spec in SERVE_RUNS
+    for want, quant in (("tinyllama-contiguous-int8", "int4"),
+                        ("qwen2-paged-bf16", "int4"),
+                        ("gemma2b-paged-int8", "int8"),
+                        ("gemma7b-paged-bf16", "int4"),
+                        ("mistral-paged-int8-ring", "int4"),
+                        ("phi3-contiguous-int8", "int4"))
+    if tag == want]
+QUANT_GRAPH_RUN = ("mixtral-paged-w8", QUANT_SERVE_RUNS[2][1],
+                   (40, 300, 700, 1100, 2000, 257))
+# Two quantized engines that share a contraction width (K 2048) serving at
+# once in one process, every product eager (burst depth 1) and short (4
+# rows a decode step, below _int_mm's 17, so padded): each must stream the
+# ids it streams alone. Padding shared between calls would let one
+# engine's rows land in the other's product.
+QUANT_CONCURRENT = [
+    (name, {**cfg, **PAGED, "prefix_cache": False, "kv_quant": "",
+            "quant": "int8", "decode_burst": 1, "decode_burst_busy": 1})
+    for name, cfg in (("tinyllama-1.1b", TINYLLAMA), ("gemma-2b", GEMMA2B))]
+QUANT_CONCURRENT_PROMPTS = (3, 7, 12, 16)
+# Weights on the card against their arithmetic, and the build's transient
+# memory: a build never holds a full-precision tree (mixtral-8x7b's would
+# be 93 GB; llama-3-8b's 16 GB against 8.6 GB of int8), only one part (a
+# layer's, an expert's, the head's fp32 draw) and its quantization
+# temporaries at a time. Had the tree existed, the peak would have stood at
+# least its bytes less the quantized weights' above what the build kept.
+WEIGHT_BYTES_REL_TOL = 0.01
+# A synthetic mixtral-8x7b checkpoint at full width and reduced depth.
+QUANT_CKPT_PRESET = "mixtral-8x7b"
+QUANT_CKPT_LAYERS = 1
+QUANT_CKPT_ENGINE = {"kv_layout": "paged", "kv_page_size": 256,
+                     "max_batch_size": 4, "max_seq_len": 2048,
+                     "prefill_chunk": 512, "prefix_cache": False}
+
+
+def quant_weight_bytes(c, quant: str, elem: int = 2) -> int:
+    """The bytes a quantized model's weights must take: embed, norms,
+    router and biases at ``elem`` bytes (bf16: 2); every layer matmul (each
+    expert's) as levels (a byte each, half a byte under int4) plus an fp32
+    scale per output channel; the int8 head (``lm_head`` or a tied model's
+    ``lm_head_q8``)."""
+    D, L = c.d_model, c.n_layers
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    bits = 4 if quant == "int4" else 8
+
+    def mat(K, N, b):
+        return K * N * b // 8 + 4 * N
+    mlp = [(D, c.d_ff), (D, c.d_ff), (c.d_ff, D)]
+    mats = [(D, q), (D, kv), (D, kv), (q, D)] + mlp * max(1, c.n_experts)
+    total = L * sum(mat(K, N, bits) for K, N in mats)
+    total += elem * (2 * L * D + D + c.vocab_size * D)     # norms, embed
+    total += elem * L * D * c.n_experts                    # router
+    total += elem * L * (q + 2 * kv) if c.attn_bias else 0  # qwen2 biases
+    return total + mat(D, c.vocab_size, 8)
+
+
+def quant_weights(torch, engine) -> dict:
+    """A quantized engine just built: its weight bytes on the card against
+    the arithmetic, and the build's peak memory against what stays."""
+    from llmapigateway_tpu_torch.engine.checkpoint import (unique_bytes,
+                                                           weight_count)
+    c = engine.model_cfg
+    got = unique_bytes(engine.params)
+    want = quant_weight_bytes(c, engine.quant, engine.dtype.itemsize)
+    peak, resident = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.memory_allocated())
+    return {"quant": engine.quant, "layers": c.n_layers, "moe": c.is_moe,
+            "unique_bytes": got, "arithmetic_bytes": want,
+            "rel_err": abs(got - want) / want,
+            "build_peak_allocated_bytes": peak,
+            "resident_after_build_bytes": resident,
+            "build_transient_bytes": peak - resident,
+            "bf16_tree_bytes": 2 * weight_count(engine.params)}
+
+
+def quant_products(c, quant: str, dense: int, dispatch: int
+                   ) -> tuple[dict, dict]:
+    """The quantized products a run of ``dense`` forwards of the dense MLP
+    form and ``dispatch`` forwards of capacity dispatch must launch, per
+    shape (``K../N..``): ``(w4a8_mm bodies, int8_mm bodies)``. Each layer
+    matmul is one product per forward (Q, K, V, O, gate, up, down); the
+    int8 head one more. Under int4 an MoE projection is one W4A8 launch
+    over its experts; under int8 the dense form runs gate and up as one
+    product against the ``[D, E·F]`` view and down once per expert, and
+    dispatch runs all three once per expert."""
+    D, F, E = c.d_model, c.d_ff, c.n_experts
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    fwd = dense + dispatch
+    w4, w8 = collections.Counter(), collections.Counter()
+    out = w4 if quant == "int4" else w8
+    for K, N in [(D, q), (D, kv), (D, kv), (q, D)]:
+        out[f"K{K}/N{N}"] += c.n_layers * fwd
+    mlp = [(D, F), (D, F), (F, D)]
+    if quant == "int4" or not E:
+        for K, N in mlp:
+            out[f"K{K}/N{N}"] += c.n_layers * fwd
+    else:
+        w8[f"K{D}/N{E * F}"] += 2 * c.n_layers * dense
+        w8[f"K{D}/N{F}"] += 2 * E * c.n_layers * dispatch
+        w8[f"K{F}/N{D}"] += E * c.n_layers * fwd
+    w8[f"K{D}/N{c.vocab_size}"] += fwd
+    return dict(+w4), dict(+w8)
+
+
+def check_quant_run(what: str, c, w: dict, steps: dict, shapes: dict,
+                    launches: dict, bodies: dict) -> dict:
+    """The weights hold their arithmetic's bytes within 1%, the build's
+    transient memory stayed below what a full-precision tree would have
+    added, and the quantized products ran exactly as the model needs, per
+    shape (:func:`quant_products`). An MoE prefill call's form follows
+    from its rows × padded width (``engine.prefill_shapes``): more than
+    models/mixtral.py's DISPATCH_THRESHOLD tokens dispatch, every decode
+    step and shorter chunk runs dense. → the forwards of each form."""
+    from llmapigateway_tpu_torch.models.mixtral import DISPATCH_THRESHOLD
+    check(w["rel_err"] <= WEIGHT_BYTES_REL_TOL,
+          f"{what}: {w['unique_bytes']} weight bytes on the card against "
+          f"{w['arithmetic_bytes']} by arithmetic")
+    check(w["build_transient_bytes"]
+          < w["bf16_tree_bytes"] - w["unique_bytes"],
+          f"{what}: the build peaked {w['build_transient_bytes']} bytes "
+          f"above what it kept: a full-precision tree ({w['bf16_tree_bytes']}"
+          f" bytes) may have existed beside the {w['unique_bytes']} kept")
+    check(sum(shapes.values()) == steps["prefill_calls"],
+          f"{what}: prefill shapes {shapes} do not add up to "
+          f"{steps['prefill_calls']} prefill calls")
+    dispatch = sum(n for (rows, width), n in shapes.items()
+                   if c.is_moe and width > 1
+                   and rows * width > DISPATCH_THRESHOLD)
+    dense = steps["decode_steps"] + steps["prefill_calls"] - dispatch
+    want = dict(zip(("w4a8_mm", "int8_mm"),
+                    quant_products(c, w["quant"], dense, dispatch)))
+    for name, bodies_want in want.items():
+        check(bodies[name] == bodies_want
+              and launches[name] == sum(bodies_want.values()),
+              f"{what}: {name} ran {launches[name]} times as {bodies[name]}"
+              f", expected {bodies_want} ({dense} dense and {dispatch} "
+              f"dispatch forwards of {c.n_layers} layers, {w['quant']})")
+    return {"dense_forwards": dense, "dispatch_forwards": dispatch}
+
+
+def _w4a8_inputs(torch, gen, E, M, K, N, shared):
+    from llmapigateway_tpu_torch.ops import quant_mm as qm
+    ex = 1 if shared else E
+    x = torch.randint(-127, 128, (ex, M, K), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    xs = torch.rand((ex, M, 1), generator=gen, device="cuda") * 1e-2 + 1e-4
+    if shared:
+        x, xs = x.expand(E, M, K), xs.expand(E, M, 1)
+    levels = torch.randint(-7, 8, (E, N, K), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+    wq = qm.pack_int4(levels).transpose(-1, -2)
+    ws = torch.rand((E, N), generator=gen, device="cuda") * 1e-2 + 1e-4
+    return x, xs, wq, ws, levels
+
+
+def check_w4a8(torch, gen, row) -> dict:
+    """The W4A8 kernel against its plain version on the same card tensors:
+    the int32 sums ``torch.equal``, the bf16 outputs within one bf16
+    rounding (KERNEL_RTOL); device times of both and of ``torch._int_mm``
+    on the same levels unpacked to int8 (the yardstick), and the bound:
+    packed bytes at 3.35 TB/s or int8 operations at 1979 TOP/s."""
+    from llmapigateway_tpu_torch.ops import quant_mm as qm
+    model, proj, E, M, K, N, shared = row
+    x, xs, wq, ws, levels = _w4a8_inputs(torch, gen, E, M, K, N, shared)
+    acc = qm.w4a8_mm(x, xs, wq, ws, acc=True)
+    acc_plain = qm.w4a8_mm_plain(x, xs, wq, ws, acc=True)
+    out = qm.w4a8_mm(x, xs, wq, ws, torch.bfloat16)
+    ref = (acc_plain.float() * xs * ws[:, None, :])
+    torch.cuda.synchronize()
+    sums_equal = torch.equal(acc, acc_plain)
+    err = held(torch, f"w4a8 {model} {proj} M{M}", out, ref)
+    w8 = levels.transpose(-1, -2)                        # [E, K, N] int8
+    if shared:
+        flat = levels.reshape(E * N, K).t()
+
+        def library():
+            return qm.int_mm_library(x[0], flat)
+    else:
+        def library():
+            return [qm.int_mm_library(x[e], w8[e]) for e in range(E)]
+    ms, host_ms = cuda_times(torch, lambda: qm.w4a8_mm(x, xs, wq, ws,
+                                                       torch.bfloat16))
+    plain_ms = cuda_ms(torch, lambda: qm.w4a8_mm_plain(x, xs, wq, ws,
+                                                       torch.bfloat16), 10)
+    library_ms = cuda_ms(torch, library)
+    ex = 1 if shared else E
+    n_bytes = (ex * M * K + E * N * K // 2 + 4 * (E * N + ex * M)
+               + 2 * E * M * N)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * E * M * N * K / INT8_OPS_PER_S * 1e3
+    res = {"name": f"w4a8_mm {model} {proj} E{E} M{M}", "model": model,
+           "body": f"K{K}/N{N}", "E": E, "M": M, "K": K, "N": N,
+           "shared_rows": shared, "sums_equal": sums_equal, **err,
+           "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    del x, xs, wq, ws, levels, w8, acc, acc_plain, out, ref
+    check(sums_equal, f"{res['name']}: int32 sums differ from the plain "
+                      f"version's")
+    check(res["max_err_over_tol"] <= 1.0,
+          f"{res['name']}: output off by {res['max_err_over_tol']} x tol")
+    return res
+
+
+def check_int8_product(torch, gen, row) -> dict:
+    """The int8 library product (``int8_mm``: ``torch._int_mm``, rows padded
+    to 17) against the plain fp64 product: ``torch.equal``; its time and
+    bound (int8 bytes, or int8 operations)."""
+    from llmapigateway_tpu_torch.ops import quant_mm as qm
+    model, proj, M, K, N = row
+    x = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8).t()
+    equal = torch.equal(qm.int8_mm(x, w), qm.int8_mm_plain(x, w))
+    ms, host_ms = cuda_times(torch, lambda: qm.int8_mm(x, w))
+    plain_ms = cuda_ms(torch, lambda: qm.int8_mm_plain(x, w), 10)
+    n_bytes = M * K + K * N + 4 * M * N
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * N * K / INT8_OPS_PER_S * 1e3
+    res = {"name": f"int8_mm {model} {proj} M{M}", "M": M, "K": K, "N": N,
+           "sums_equal": equal, "ms": ms, "host_ms": host_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "padded_to": max(M, qm.INT_MM_MIN_ROWS)}
+    check(equal, f"{res['name']}: torch._int_mm differs from the exact "
+                 f"product")
+    return res
+
+
+def check_quantized_shards(torch, params, model_dir: str, quant: str) -> int:
+    """Every leaf of an engine loaded with ``quant`` against its tensor read
+    back from the shards: a quantizable tensor's levels (unpacked) and
+    scales ``torch.equal`` to its quantization on the host (the CPU, from
+    the file's own values), every other leaf to the tensor itself (router
+    transposed); every leaf covered. → the tensors compared."""
+    from pathlib import Path
+
+    from llmapigateway_tpu_torch.engine.checkpoint import _map_name
+    from llmapigateway_tpu_torch.models.quant import (is_quantized,
+                                                      quantize_levels,
+                                                      weight_bits)
+    from llmapigateway_tpu_torch.ops.quant_mm import unpack_int4
+    from llmapigateway_tpu_torch.utils.safetensors_lite import safe_open
+    n = 0
+    for shard in sorted(Path(model_dir).glob("*.safetensors")):
+        with safe_open(shard) as f:
+            for name in f.keys():
+                key, layer, expert, transpose = _map_name(name)
+                leaf = params[key] if layer is None \
+                    else params["layers"][key]
+                index = (() if layer is None else (layer,) if expert is None
+                         else (layer, expert))
+                t = f.get_tensor(name)
+                if is_quantized(leaf):
+                    q = leaf["q"][index]
+                    phys = (q.transpose(-1, -2) if transpose else q).cpu()
+                    levels = (unpack_int4(phys) if phys.dtype == torch.uint8
+                              else phys)
+                    path = key if layer is None else f"layers.{key}"
+                    want_q, want_s = quantize_levels(
+                        t, 1, weight_bits(quant, path))
+                    ok = (torch.equal(levels, want_q) and torch.equal(
+                        leaf["s"][index].cpu(), want_s))
+                else:
+                    v = leaf[index].cpu()
+                    ok = torch.equal(v, (t.T if transpose else t).to(v.dtype))
+                check(ok, f"quant checkpoint: {key}{list(index)} differs from "
+                          f"the host quantization of {name}")
+                n += 1
+    return n
+
+
+async def _quantized_load(torch, model_dir: str, quant: str,
+                          engine_cfg: dict, what: str) -> dict:
+    """An engine built on the card from ``model_dir`` with ``quant``: its
+    leaves against the shards' host quantization, its weight bytes against
+    the arithmetic, one greedy request of 16 tokens; then closed."""
+    from llmapigateway_tpu_torch.config.schemas import LocalEngineConfig
+    from llmapigateway_tpu_torch.engine.engine import (GenRequest,
+                                                       InferenceEngine)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(LocalEngineConfig(
+        model_path=model_dir, quant=quant, **engine_cfg), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    weights = quant_weights(torch, engine)
+    t1 = time.monotonic()
+    compared = check_quantized_shards(torch, engine.params, model_dir, quant)
+    compare_s = time.monotonic() - t1
+
+    req = GenRequest(prompt_ids=list(range(5, 100)), max_tokens=16)
+    await engine.submit(req)
+    async for _ in engine.stream(req):
+        pass
+    await engine.close()
+    res = {"what": what, "quant": quant, "layers": engine.model_cfg.n_layers,
+           "experts": engine.model_cfg.n_experts, "build_s": build_s,
+           "load": dict(engine.load_stats), "tensors_compared": compared,
+           "compare_s": compare_s, "weights": weights,
+           "generated": len(req.generated), "finish": req.finish_reason}
+    del engine
+    check(weights["rel_err"] <= WEIGHT_BYTES_REL_TOL,
+          f"{what}: {weights['unique_bytes']} weight bytes against "
+          f"{weights['arithmetic_bytes']} by arithmetic")
+    check(res["generated"] > 0, f"{what}: the request generated nothing")
+    return res
+
+
+async def _quant_concurrent(torch, card: str) -> dict:
+    """QUANT_CONCURRENT: each engine alone, then both at once, 4 greedy
+    requests each, every run admitted in one step (so the batches, and
+    with them every product's shapes, match); the ids must be equal."""
+    from llmapigateway_tpu_torch.config.schemas import LocalEngineConfig
+    from llmapigateway_tpu_torch.engine.engine import (GenRequest,
+                                                       InferenceEngine)
+    engines = {name: InferenceEngine(LocalEngineConfig(**cfg), device="cuda")
+               for name, cfg in QUANT_CONCURRENT}
+
+    async def run(engine) -> list[list[int]]:
+        reqs = [GenRequest(prompt_ids=list(range(5, 5 + n)),
+                           max_tokens=SERVE_MAX_TOKENS)
+                for n in QUANT_CONCURRENT_PROMPTS]
+        _gate_first_step(engine, len(reqs))
+        for r in reqs:
+            await engine.submit(r)
+
+        async def drain(r):
+            async for _ in engine.stream(r):
+                pass
+        await asyncio.gather(*[drain(r) for r in reqs])
+        return [list(r.generated) for r in reqs]
+
+    solo = {name: await run(e) for name, e in engines.items()}
+    for e in engines.values():
+        e.decode_steps = e.prefill_calls = 0
+        _reset_pipeline(e)
+    t0 = time.monotonic()
+    together = dict(zip(engines, await asyncio.gather(
+        *[run(e) for e in engines.values()])))
+    wall_s = time.monotonic() - t0
+    work = {name: {"decode_steps": e.decode_steps,
+                   "prefill_calls": e.prefill_calls, **_pipeline(e)}
+            for name, e in engines.items()}
+    for e in engines.values():
+        await e.close()
+    del engines
+    res = {"phase": "quant-concurrent", "card": card,
+           "engines": [name for name, _ in QUANT_CONCURRENT],
+           "prompt_tokens": list(QUANT_CONCURRENT_PROMPTS),
+           "together_wall_s": wall_s, "work": work,
+           "generated": {n: [len(g) for g in together[n]] for n in together},
+           "equal": {n: together[n] == solo[n] for n in together}}
+    emit(res)
+    for name, w in work.items():
+        check(w["decode_steps"] > 0 and w["graph_replays"] == 0,
+              f"quant concurrent {name}: decode was not eager: {w}")
+        check(together[name] == solo[name],
+              f"quant concurrent {name}: ids served beside another engine "
+              f"{together[name]} differ from those served alone "
+              f"{solo[name]}")
+    return res
+
+
+def quant_phase(torch, ks, card: str, gen) -> dict:
+    """Phase 11: the W4A8 kernel and the int8 product against their plain
+    versions; llama-3-8b and mixtral-8x7b served at int8 and int4 over the
+    paged pool, and every other dense preset quantized; two quantized
+    engines serving at once against each alone; mixtral-8x7b's decode
+    graphs replayed against eager; a synthetic mixtral-8x7b
+    checkpoint (full width, one layer) loaded with int8."""
+    out = {"w4a8": [check_w4a8(torch, gen, row) for row in W4A8_ROWS]}
+    out["int8_mm"] = [check_int8_product(torch, gen, row)
+                      for row in INT8_ROWS]
+    emit({"phase": "quant-kernel", "card": card, "w4a8": out["w4a8"],
+          "int8_mm": out["int8_mm"]})
+    torch.cuda.empty_cache()
+    serve = {}
+    for tag, engine_cfg, prompt_spec in QUANT_SERVE_RUNS + QUANT_PRESET_RUNS:
+        t0 = time.monotonic()
+        serve[tag] = asyncio.run(_serve(torch, ks, card, tag, engine_cfg,
+                                        prompt_spec))
+        _freed(torch, tag, t0)
+    out["serve"] = serve
+    t0 = time.monotonic()
+    out["concurrent"] = asyncio.run(_quant_concurrent(torch, card))
+    _freed(torch, "quant concurrent", t0)
+    t0 = time.monotonic()
+    out["graphs"] = _graph_check(torch, *QUANT_GRAPH_RUN)
+    _freed(torch, "graphs mixtral", t0)
+
+    from llmapigateway_tpu_torch.tools import make_synthetic_checkpoint
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as d:
+        written = make_synthetic_checkpoint.main([
+            "--preset", QUANT_CKPT_PRESET, "--out", d, "--n-layers",
+            str(QUANT_CKPT_LAYERS), "--shard-gb", "1"])
+        write_s = time.monotonic() - t0
+        out["checkpoint"] = {"written": written, "write_s": write_s,
+                             **asyncio.run(_quantized_load(
+                                 torch, d, "int8", QUANT_CKPT_ENGINE,
+                                 "quant checkpoint mixtral-8x7b"))}
+    emit({"phase": "quant-checkpoint", "card": card, **out["checkpoint"]})
+    _freed(torch, "quant checkpoint", t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the port's bench tool, short
 # ---------------------------------------------------------------------------
 
 def bench_phase(torch) -> dict:
@@ -2818,6 +3330,8 @@ def bench_phase(torch) -> dict:
     emit({"phase": "bench", "args": BENCH_ARGS, "metric": result["metric"],
           "value": result["value"], "card": extra.get("card"),
           "shared_prefix": sp, "ttft_target": extra.get("ttft_target"),
+          **{a: extra.get(a) for a in ("quant_int8", "quant_int8_kv8",
+                                       "quant_int4_kv8")},
           "errors": extra.get("errors")})
     check(result["value"] > 0, f"bench: value {result['value']}")
     check(not extra.get("errors"), f"bench: rungs failed: {extra}")
@@ -2829,6 +3343,14 @@ def bench_phase(torch) -> dict:
     tt = extra.get("ttft_target") or {}
     check(tt.get("scheduler_tok_s", 0) > 0 and tt.get("graph_replays", 0) > 0,
           f"bench: the ttft_target rung did not run on decode graphs: {tt}")
+    arms = {a: extra.get(a) or {} for a in ("quant_int8", "quant_int8_kv8",
+                                            "quant_int4_kv8")}
+    check(all(a.get("tok_s", 0) > 0 and a.get("speedup_vs_bf16")
+              for a in arms.values())
+          and "speedup_vs_int8" in arms["quant_int4_kv8"]
+          and arms["quant_int4_kv8"]["weight_bytes"]
+          < arms["quant_int8"]["weight_bytes"],
+          f"bench: the quant rung's arms: {arms}")
     _freed(torch, "bench", time.monotonic())
     return result
 
@@ -2836,7 +3358,8 @@ def bench_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 def kernels_line(kernel_rows: list[dict], serve: dict,
-                 insert_rows: list[dict], tools: dict) -> dict:
+                 insert_rows: list[dict], tools: dict,
+                 quant: dict) -> dict:
     """One row per kernel body and shape: a prefill body's times are its
     first chunk length's (T 512), its error the largest over both.
     ``launches`` counts the launches of the row's body at the row's head
@@ -2891,6 +3414,23 @@ def kernels_line(kernel_rows: list[dict], serve: dict,
         "library_ms": ins["library_ms"],
         "launch_floor_ms": ins["launch_floor_ms"],
         "single_launch_ms": ins["single_launch_ms"]}
+    # The W4A8 kernel, one row per shape: its launches are those of its
+    # (K, N) in the int4 serve run of the row's model.
+    for r in quant["w4a8"]:
+        run = next(tag for tag, cfg, _ in QUANT_SERVE_RUNS
+                   if cfg["preset"] == r["model"] and cfg["quant"] == "int4")
+        launches = quant["serve"][run]["body_launches"]["w4a8_mm"].get(
+            r["body"], 0)
+        check(launches > 0, f"{r['name']}: its shape {r['body']} never ran "
+                            f"on the main path of serve run {run}")
+        rows[r["name"]] = {
+            "name": r["name"], "route": "cuda",
+            "source": "llmapigateway_tpu_torch/csrc/w4a8_mm.cu",
+            "replaces": W4A8_REPLACES, "launches": launches, "serve": run,
+            "body": r["body"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "host_ms": r["host_ms"]}
     return {"kernels": list(rows.values())}
 
 
@@ -3120,10 +3660,13 @@ def main(argv=()) -> int:
         checkpoint_phase(torch, ks, smi)
         seconds["checkpoint"] = time.monotonic() - t0
         t0 = time.monotonic()
+        quant = quant_phase(torch, ks, smi, gen)
+        seconds["quant"] = time.monotonic() - t0
+        t0 = time.monotonic()
         bench_phase(torch)
         seconds["bench"] = time.monotonic() - t0
 
-        line = kernels_line(kernel_rows, serve, insert_rows, tools)
+        line = kernels_line(kernel_rows, serve, insert_rows, tools, quant)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

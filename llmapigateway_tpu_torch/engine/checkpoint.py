@@ -4,10 +4,18 @@ device (counterpart of the JAX package's ``engine/checkpoint.py``).
 The HF Llama/Mistral/Qwen2/Gemma names map onto the keys of
 ``models/llama.py`` ``init_params``; Phi-3's fused ``qkv_proj`` and
 ``gate_up_proj`` are split by rows into ``wq``/``wk``/``wv`` and
-``wg``/``wu``; Mixtral's names are mapped too, but an MoE model is refused
-(ROADMAP.md, port queue: MoE). Torch ``nn.Linear`` stores ``[out, in]``; the
-port's matmul layout is ``[in, out]``, so every projection is transposed on
-load.
+``wg``/``wu``; Mixtral's ``block_sparse_moe.experts.{e}.w1/w3/w2`` stack into
+``wg``/``wu`` ``[L, E, D, F]`` and ``wd`` ``[L, E, F, D]``, its gate into
+``router [L, D, E]``. Torch ``nn.Linear`` stores ``[out, in]``; the port's
+matmul layout is ``[in, out]``, so every projection is transposed on load.
+
+With ``quant`` (the JAX engine's ``preprocess`` hook, engine.py:581-589)
+each quantizable tensor is quantized at the file's own precision, before
+any cast: an HF row is one output channel with its whole contraction, so
+each run of rows quantizes on its own, exactly, into the N-major (and under
+int4 packed) leaves of models/quant.py — which keep the file's orientation.
+A tied checkpoint gets its int8 head copy ``lm_head_q8`` from the placed
+embed, on the device (JAX engine.py:594-609).
 
 Every tensor's name, shape and dtype is checked against the config from the
 shard headers before any tensor is read. Then each stacked parameter
@@ -30,8 +38,11 @@ from typing import Any
 
 import torch
 
-from ..config.schemas import not_ported
 from ..models.config import ModelConfig
+from ..models.quant import (contract_axis_for, empty_quantized, is_packed,
+                            is_quantized, quantize_array, quantize_levels,
+                            weight_bits)
+from ..ops.quant_mm import pack_int4
 from ..utils.safetensors_lite import safe_open
 
 logger = logging.getLogger(__name__)
@@ -143,6 +154,10 @@ def param_shapes(c: ModelConfig) -> dict[str, Any]:
               "wg": (L, c.d_model, c.d_ff), "wu": (L, c.d_model, c.d_ff),
               "wd": (L, c.d_ff, c.d_model),
               "bq": (L, q), "bk": (L, kv), "bv": (L, kv)}
+    if c.is_moe:
+        E, D, F = c.n_experts, c.d_model, c.d_ff
+        layers.update(router=(L, D, E), wg=(L, E, D, F), wu=(L, E, D, F),
+                      wd=(L, E, F, D))
     return {"embed": (c.vocab_size, c.d_model), "final_norm": (c.d_model,),
             "lm_head": (c.vocab_size, c.d_model), "layers": layers}
 
@@ -150,14 +165,14 @@ def param_shapes(c: ModelConfig) -> dict[str, Any]:
 def load_checkpoint(model_dir: str | Path, config: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
                     device: str | torch.device = "cpu",
-                    stats: dict | None = None) -> dict[str, Any]:
+                    stats: dict | None = None,
+                    quant: str = "") -> dict[str, Any]:
     """Load an HF checkpoint into the stacked-layer params layout on
-    ``device``, cast to ``dtype``. A tied checkpoint (no ``lm_head``) gets
+    ``device``, cast to ``dtype``, its quantizable tensors quantized under
+    ``quant`` ("int8" | "int4"). A tied checkpoint (no ``lm_head``) gets
     ``lm_head`` as the embed tensor itself, not a copy. ``stats``, when
     given, receives the bytes read, the seconds spent reading files and
     the load's wall seconds (the device synchronized)."""
-    if config.is_moe:
-        raise not_ported("an MoE model", "MoE")
     t0 = time.perf_counter()
     device = torch.device(device)
     model_dir = Path(model_dir)
@@ -176,9 +191,11 @@ def load_checkpoint(model_dir: str | Path, config: ModelConfig,
                     logger.debug("skipping unmapped tensor %s", name)
                     continue
                 key, layer, expert, transpose = mapped
-                if expert is not None:
-                    raise ValueError(f"checkpoint tensor {name} belongs to an "
-                                     f"MoE model; the config is dense")
+                if (expert is not None) != (config.is_moe and key in (
+                        "wg", "wu", "wd")):
+                    raise ValueError(
+                        f"checkpoint tensor {name} does not fit the "
+                        f"{'MoE' if config.is_moe else 'dense'} config")
                 shape = f.shape(name)
                 if key in ("__qkv__", "__gu__"):
                     subs = _fused_bounds(key, config)
@@ -188,18 +205,18 @@ def load_checkpoint(model_dir: str | Path, config: ModelConfig,
                             f"fused tensor {name} has {shape[0]} rows of "
                             f"{shape[1:]}; config implies {rows} of "
                             f"({config.d_model},) ({[s[0] for s in subs]})")
-                    dests = [(sub, layer, lo, hi, True)
+                    dests = [(sub, (layer, None), lo, hi, True)
                              for sub, lo, hi in subs]
                 else:
-                    dests = [(key, layer, 0, shape[0] if shape else 1,
-                              transpose)]
-                for sub, layer_i, lo, hi, t in dests:
+                    dests = [(key, (layer, expert), 0,
+                              shape[0] if shape else 1, transpose)]
+                for sub, where, lo, hi, t in dests:
                     leaf = (shape[1:][::-1] + (hi - lo,) if t
                             else (hi - lo,) + shape[1:])
-                    if layer_i in found.setdefault(sub, {}):
+                    if where in found.setdefault(sub, {}):
                         raise ValueError(f"checkpoint holds {sub} layer "
-                                         f"{layer_i} twice")
-                    found[sub][layer_i] = leaf
+                                         f"{where[0]} twice")
+                    found[sub][where] = leaf
                 plan.setdefault(shard, []).append((name, dests))
     shapes = _validate_shapes(found, config)
 
@@ -207,8 +224,13 @@ def load_checkpoint(model_dir: str | Path, config: ModelConfig,
     # it, in file order.
     params: dict[str, Any] = {"layers": {}}
     for key, shape in shapes.items():
-        leaf = torch.empty(shape, dtype=dtype, device=device)
-        if key in ("embed", "final_norm", "lm_head"):
+        top = key in ("embed", "final_norm", "lm_head")
+        path = key if top else f"layers.{key}"
+        axis = contract_axis_for(path, len(shape)) if quant else None
+        leaf = (torch.empty(shape, dtype=dtype, device=device)
+                if axis is None else empty_quantized(
+                    shape, axis, weight_bits(quant, path), device))
+        if top:
             params[key] = leaf
         else:
             params["layers"][key] = leaf
@@ -230,8 +252,8 @@ def load_checkpoint(model_dir: str | Path, config: ModelConfig,
                         read_s += time.perf_counter() - t
                         n_bytes += chunk.numel() * chunk.element_size()
                         copier.place(chunk, c0, [
-                            (_leaf(params, key, layer), lo, hi, t)
-                            for key, layer, lo, hi, t in dests])
+                            (_leaf(params, key, where), lo, hi, t)
+                            for key, where, lo, hi, t in dests])
     finally:
         copier.close()
 
@@ -239,16 +261,26 @@ def load_checkpoint(model_dir: str | Path, config: ModelConfig,
         if not config.tie_embeddings:
             logger.info("no lm_head in checkpoint; using tied embeddings")
         params["lm_head"] = params["embed"]
+        if quant:
+            params["lm_head_q8"] = quantize_array(params["embed"], 1)
     if stats is not None:
         stats.update(bytes=n_bytes, read_s=read_s,
                      seconds=time.perf_counter() - t0)
     return params
 
 
-def _leaf(params: dict, key: str, layer: int | None) -> torch.Tensor:
+def _leaf(params: dict, key: str, where: tuple):
+    """The destination of one tensor: a top-level leaf, or layer (and
+    expert) of a stacked one — a tensor view, or the ``{"q", "s"}`` views
+    of a quantized leaf."""
+    layer, expert = where
     if layer is None:
         return params[key]
-    return params["layers"][key][layer]
+    leaf = params["layers"][key]
+    index = (layer,) if expert is None else (layer, expert)
+    if isinstance(leaf, dict):
+        return {"q": leaf["q"][index], "s": leaf["s"][index]}
+    return leaf[index]
 
 
 def _validate_shapes(found: dict, config: ModelConfig) -> dict:
@@ -260,12 +292,18 @@ def _validate_shapes(found: dict, config: ModelConfig) -> dict:
     shapes = {}
     for key, by_layer in found.items():
         if key in want["layers"]:
-            if set(by_layer) != set(range(c.n_layers)):
-                raise ValueError(
-                    f"checkpoint/config mismatch: {key} has layers "
-                    f"{sorted(by_layer)}, config implies {c.n_layers}")
-            got = {(c.n_layers,) + s for s in by_layer.values()}
             expect = want["layers"][key]
+            experts = c.is_moe and key in ("wg", "wu", "wd")
+            need = {(i, e) for i in range(c.n_layers)
+                    for e in (range(c.n_experts) if experts else [None])}
+            if set(by_layer) != need:
+                raise ValueError(
+                    f"checkpoint/config mismatch: {key} has (layer, expert) "
+                    f"{sorted(by_layer, key=str)[:8]}..., config implies "
+                    f"{c.n_layers} layers"
+                    + (f" of {c.n_experts} experts" if experts else ""))
+            got = {expect[:len(expect) - len(s)] + s
+                   for s in by_layer.values()}
         else:
             got, expect = set(by_layer.values()), want[key]
         if got != {expect}:
@@ -278,7 +316,7 @@ def _validate_shapes(found: dict, config: ModelConfig) -> dict:
         if key not in shapes:
             raise ValueError(f"checkpoint is missing {key}")
     required = {"attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wg", "wu",
-                "wd"}
+                "wd"} | ({"router"} if c.is_moe else set())
     if c.attn_bias:
         # A qwen2-family checkpoint without its bias tensors must refuse to
         # load, not silently run bias-free.
@@ -323,7 +361,17 @@ class _RowCopier:
             if r0 >= r1:
                 continue
             part = src[r0 - c0:r1 - c0]
-            if transpose:
+            if isinstance(leaf, dict):
+                # Rows are output channels with their whole contraction:
+                # quantized here at the file's precision, into storage that
+                # keeps the file's orientation.
+                q, scale = quantize_levels(part, 1, 8 if leaf["q"].dtype
+                                   == torch.int8 else 4)
+                phys = leaf["q"].transpose(-1, -2) if transpose else leaf["q"]
+                phys[r0 - lo:r1 - lo].copy_(
+                    q if phys.dtype == torch.int8 else pack_int4(q))
+                leaf["s"][r0 - lo:r1 - lo].copy_(scale)
+            elif transpose:
                 leaf[..., r0 - lo:r1 - lo].copy_(part.T)
             else:
                 leaf[r0 - lo:r1 - lo].copy_(part)
@@ -352,6 +400,28 @@ def unique_bytes(params: dict[str, Any]) -> int:
         elif node.data_ptr() not in seen:
             seen.add(node.data_ptr())
             total += node.numel() * node.element_size()
+    walk(params)
+    return total
+
+
+def weight_count(params: dict[str, Any]) -> int:
+    """The weights a params tree stands for, each tensor once: a packed
+    int4 byte is two, an int8 level one; scales, and the int8 copy of a
+    tied head (``lm_head_q8``, the embed's own weights), are none."""
+    seen, total = set(), 0
+
+    def walk(node, key=None):
+        nonlocal total
+        if key == "lm_head_q8":
+            return
+        if is_quantized(node):
+            total += node["q"].numel() * (2 if is_packed(node) else 1)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif node.data_ptr() not in seen:
+            seen.add(node.data_ptr())
+            total += node.numel()
     walk(params)
     return total
 

@@ -42,10 +42,12 @@ from ..ops.flash_attention import (flash_decode_attention,
                                    flash_prefill_attention)
 from ..ops.paged_attention import (paged_decode_attention,
                                    paged_prefill_attention)
+from ..ops.quant_mm import int8_mm, w4a8_mm
 
-# The kernel wrappers whose launch counters a replay must advance.
+# The kernel (and library product) wrappers whose launch counters a replay
+# must advance: the attention kernels and the quantized projections.
 COUNTED = (paged_decode_attention, paged_prefill_attention,
-           flash_decode_attention, flash_prefill_attention)
+           flash_decode_attention, flash_prefill_attention, int8_mm, w4a8_mm)
 
 
 def launch_counts(fns=COUNTED) -> dict:

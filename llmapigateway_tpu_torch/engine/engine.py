@@ -67,7 +67,14 @@ in PyTorch (counterpart of the JAX package's ``engine/engine.py``).
 * **Weights** come from an HF safetensors checkpoint (``model_path``,
   engine/checkpoint.py, its architecture from the checkpoint's
   ``config.json`` unless a ``preset`` names it) or, with a ``preset`` alone,
-  are random from a seed.
+  are random from a seed. With ``quant`` ("int8" | "int4") the layer
+  matmuls and the head are quantized (models/quant.py) as they are loaded
+  or drawn, one tensor part at a time: the full-precision model never
+  exists on the device. The Mixtral family (``n_experts`` > 0) runs its MoE
+  MLP (models/mixtral.py) on the same paths.
+* **Admission** sheds (``EngineOverloaded``, the gateway's 429) when the
+  queue is full, and on the card when free device memory is below
+  ``hbm_headroom_watermark`` (:class:`DeviceHeadroom`).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking
 for ``cuda`` where there is none raises instead of running on the CPU.
@@ -89,6 +96,7 @@ from ..config.schemas import LocalEngineConfig, SupervisorConfig, not_ported
 from ..models import forward_fn, init_fn
 from ..models.config import ModelConfig, get_preset
 from ..models.llama import KVCache, forward_hidden, head_logits
+from ..models.quant import QUANT_MODES
 from ..ops import _kernels
 from ..ops.flash_attention import make_cache_attention_fn
 from ..ops.paged_attention import PagedKVCache, make_paged_attention_fn
@@ -162,6 +170,44 @@ class Delta:
     error: str | None = None
 
 
+def _cuda_free_memory(device: torch.device) -> dict:
+    """What the card could still hand this process: the CUDA driver's free
+    bytes plus what PyTorch's allocator holds but does not use (reserved −
+    allocated), and the card's total."""
+    free, total = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return {"bytes_free": free + cached, "bytes_total": total}
+
+
+class DeviceHeadroom:
+    """The free fraction of the card's memory for ``hbm_headroom_watermark``
+    (the JAX engine's ``HbmLedger.headroom_fraction``, obs/device.py:149),
+    read through ``mem_fn`` and cached for ``ttl_s`` so that admission does
+    not ask the CUDA driver on every request. ``mem_fn`` returns
+    ``{bytes_free, bytes_total}``; on the CPU there is none (and the
+    watermark is inert, as in JAX) unless a test injects one."""
+
+    ttl_s = 0.5
+
+    def __init__(self, device: torch.device):
+        self.mem_fn = ((lambda: _cuda_free_memory(device))
+                       if device.type == "cuda" else None)
+        self._cached: float | None = None
+        self._stamp = -float("inf")
+
+    def fraction(self) -> float | None:
+        if self.mem_fn is None:
+            return None
+        now = time.monotonic()
+        if now - self._stamp >= self.ttl_s:
+            mem = self.mem_fn()
+            self._cached = (max(0.0, mem["bytes_free"] / mem["bytes_total"])
+                            if mem and mem.get("bytes_total") else None)
+            self._stamp = now
+        return self._cached
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """The engine's device. ``cuda`` without a usable card is an error —
     the engine never carries on on the CPU unless asked to."""
@@ -176,7 +222,7 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
+def _refuse_unported(cfg: LocalEngineConfig) -> None:
     """Reject every knob whose JAX feature the port does not have yet, so a
     providers.json never silently means something else here."""
     if cfg.kv_layout not in ("paged", "contiguous"):
@@ -185,12 +231,11 @@ def _refuse_unported(cfg: LocalEngineConfig, model_cfg: ModelConfig) -> None:
     if cfg.kv_quant not in ("", "int8"):
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}; expected "
                          f"'' | 'int8'")
+    if cfg.quant not in QUANT_MODES:
+        raise ValueError(f"unknown quant {cfg.quant!r}; "
+                         f"expected one of {QUANT_MODES}")
     if cfg.spec_draft_len:
         raise not_ported("spec_draft_len", "speculative decoding")
-    if cfg.quant:
-        raise not_ported(f"quant={cfg.quant!r}", "weight quantization")
-    if model_cfg.is_moe:
-        raise not_ported("an MoE model", "MoE")
     if any(size != 1 for size in cfg.mesh.values()):
         raise not_ported(f"mesh={cfg.mesh}", "parallelism")
     if cfg.disaggregation.enabled:
@@ -243,13 +288,17 @@ class InferenceEngine:
             else:
                 raise ValueError(
                     "local engine needs 'preset' or 'model_path'")
-        _refuse_unported(engine_cfg, model_cfg)
+        _refuse_unported(engine_cfg)
         _refuse_unbuilt_geometry(engine_cfg, model_cfg, device)
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[engine_cfg.dtype]
         self.paged = engine_cfg.kv_layout == "paged"
+        self.quant = engine_cfg.quant
         self.kv_quant = engine_cfg.kv_quant
+
+        self.headroom = DeviceHeadroom(self.device)
+        self._watermark_sheds = 0
 
         self.B = engine_cfg.max_batch_size
         self.S = min(engine_cfg.max_seq_len, model_cfg.max_seq_len)
@@ -279,17 +328,24 @@ class InferenceEngine:
         self._forward = forward_fn(model_cfg)
         self.load_stats: dict = {}
         if engine_cfg.model_path:
+            # With ``quant`` each tensor quantizes at the file's own
+            # precision, one run of rows at a time (engine/checkpoint.py).
             self.params = load_checkpoint(
                 engine_cfg.model_path, model_cfg, dtype=self.dtype,
-                device=self.device, stats=self.load_stats)
+                device=self.device, stats=self.load_stats, quant=self.quant)
             logger.info("checkpoint %s: %.2f GB in %.1fs",
                         engine_cfg.model_path, self.load_stats["bytes"] / 1e9,
                         self.load_stats["seconds"])
         else:
-            # Random weights from a fixed seed.
+            # Random weights from a fixed seed. With ``quant`` they are
+            # drawn and quantized one layer (one expert) at a time straight
+            # into the quantized leaves: the JAX engine quantizes a whole
+            # bf16 tree (engine.py:612-624), which for mixtral-8x7b (93 GB
+            # in bf16) would not fit the card.
             gen = torch.Generator(device=self.device).manual_seed(0)
             self.params = init_fn(model_cfg)(model_cfg, gen, dtype=self.dtype,
-                                             device=self.device)
+                                             device=self.device,
+                                             quant=self.quant)
         self._init_state()
         logger.info("engine build on %s: %.1fs", self.device,
                     time.monotonic() - t0)
@@ -312,6 +368,9 @@ class InferenceEngine:
         # bursts in flight fetched before the next pipelined dispatch.
         self.prefill_calls = 0
         self.prefill_one_token_calls = 0
+        # Prefill calls by (rows, padded width): the shape an MLP hook sees
+        # (an MoE layer picks its dense or dispatch form by it).
+        self.prefill_shapes: dict[tuple[int, int], int] = {}
         self.decode_steps = 0
         self.sync_bursts = 0
         self.flushes = 0
@@ -550,6 +609,17 @@ class InferenceEngine:
                 f"max_seq_len {self.S}")
         req.max_tokens = max(1, min(req.max_tokens,
                                     self.S - len(req.prompt_ids)))
+        # The HBM headroom watermark (JAX engine.py:1465-1484): with less
+        # free device memory than the configured fraction, shed at admission
+        # like a full queue (429 + Retry-After) rather than fail mid-stream.
+        wm = self.cfg.hbm_headroom_watermark
+        if wm > 0:
+            frac = self.headroom.fraction()
+            if frac is not None and frac < wm:
+                self._watermark_sheds += 1
+                raise EngineOverloaded(
+                    f"device memory headroom {frac:.1%} below the "
+                    f"{wm:.0%} watermark")
         req.detok = IncrementalDetokenizer(self.tokenizer)
         try:
             self._queue.put_nowait(req)
@@ -856,6 +926,8 @@ class InferenceEngine:
                 np.asarray([s[4] for s in samps], np.float32)))
         self.prefill_calls += 1
         self.prefill_one_token_calls += width == 1
+        self.prefill_shapes[K, width] = self.prefill_shapes.get(
+            (K, width), 0) + 1
         return sample(logits, samp, self._rng, counts=counts)
 
     def _all_greedy(self) -> bool:
@@ -1259,8 +1331,11 @@ class InferenceEngine:
             out["burst_walls_ms"] = {
                 d: round(ms, 1)
                 for d, ms in sorted(self._burst_walls.items())}
+        if self.quant:
+            out["quant"] = self.quant
         if self.kv_quant:
             out["kv_quant"] = self.kv_quant
+        out["watermark_sheds"] = self._watermark_sheds
         if self.allocator is not None:
             out["free_pages"] = self.allocator.free_pages
             out["total_pages"] = (self.allocator.num_pages

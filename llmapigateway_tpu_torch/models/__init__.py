@@ -3,24 +3,22 @@ ModelConfig.family so new architectures plug in without engine changes."""
 from .config import PRESETS, ModelConfig, get_preset
 
 
-def _dense_only(config: ModelConfig) -> None:
-    if config.is_moe:
-        raise ValueError("MoE (mixtral) models are not ported to PyTorch yet "
-                         "(ROADMAP.md port queue: MoE)")
-
-
 def forward_fn(config: ModelConfig):
     """The forward callable for a family: (params, config, tokens, lengths,
     cache, *, attention_fn, active=None) → (logits, cache)."""
-    _dense_only(config)
+    if config.is_moe:
+        from . import mixtral
+        return mixtral.forward
     from . import llama
     return llama.forward
 
 
 def init_fn(config: ModelConfig):
     """Random-init callable for a family: (config, generator, dtype,
-    device) → params."""
-    _dense_only(config)
+    device, quant) → params."""
+    if config.is_moe:
+        from . import mixtral
+        return mixtral.init_params
     from . import llama
     return llama.init_params
 

@@ -1,10 +1,11 @@
 """Carry parameters and KV caches from the JAX package's layout into the
 port's.
 
-The JAX package's llama params are a nested dict of arrays in the
-stacked-layer layout; after ``jax.tree.map(np.asarray, params)`` it is a
-nested dict of numpy arrays, which :func:`params_from_jax` turns into the
-port's nested dict of tensors with the same keys and shapes — so both
+The JAX package's llama and mixtral params are a nested dict of arrays in
+the stacked-layer layout, quantized leaves ``{"q", "s"}`` included; after
+``jax.tree.map(np.asarray, params)`` it is a nested dict of numpy arrays,
+which :func:`params_from_jax` turns into the port's nested dict of tensors
+with the same keys and shapes — so both
 packages compute the same function in the tests. :func:`kv_cache_from_jax`
 does the same for a KV cache. No JAX import here: the caller does the
 ``np.asarray``.
@@ -27,11 +28,22 @@ def _tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def params_from_jax(tree: dict[str, Any]) -> dict[str, Any]:
+def params_from_jax(tree: dict[str, Any], path: str = "") -> dict[str, Any]:
     """Nested dict of numpy arrays → nested dict of CPU tensors of the same
-    dtypes (``.to(device)`` them for the card)."""
-    return {name: params_from_jax(leaf) if isinstance(leaf, dict)
-            else _tensor(leaf) for name, leaf in tree.items()}
+    dtypes (``.to(device)`` them for the card). A quantized ``{"q", "s"}``
+    leaf (int8, or ml_dtypes int4) comes across in the port's storage:
+    N-major levels, int4 packed two a byte (models/quant.py)."""
+    from .quant import from_jax_leaf, is_quantized
+    out = {}
+    for name, leaf in tree.items():
+        sub = f"{path}.{name}" if path else name
+        if is_quantized(leaf):
+            out[name] = from_jax_leaf(sub, leaf["q"], leaf["s"])
+        elif isinstance(leaf, dict):
+            out[name] = params_from_jax(leaf, sub)
+        else:
+            out[name] = _tensor(leaf)
+    return out
 
 
 def kv_cache_from_jax(cache):
@@ -47,5 +59,7 @@ def kv_cache_from_jax(cache):
                         f"expected one of {sorted(classes)}")
 
     def side(x):
-        return params_from_jax(x) if isinstance(x, dict) else _tensor(x)
+        if isinstance(x, dict):
+            return {name: _tensor(leaf) for name, leaf in x.items()}
+        return _tensor(x)
     return cls(k=side(cache.k), v=side(cache.v))

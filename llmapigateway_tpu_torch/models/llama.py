@@ -21,8 +21,10 @@
 * The contiguous cache, its inserts and the int8 KV quantizer live here,
   as in the JAX package; a cache side is a tensor or the int8
   ``{"q", "s"}`` dict.
-* Projections, MLP and head are ``torch.matmul`` (the JAX package leaves
-  them to XLA); RMSNorm, RoPE tables and logits are fp32.
+* Projections, MLP and head go through models/quant.py's ``mm`` and
+  ``head_matmul``: ``torch.matmul`` for full-precision weights (the JAX
+  package leaves them to XLA), the integer products for quantized ones;
+  RMSNorm, RoPE tables and logits are fp32.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ import torch.nn.functional as F
 
 from ..ops.flash_attention import causal_core, decode_core
 from .config import ModelConfig
+from .quant import (contract_axis_for, empty_quantized, head_matmul, mm,
+                    mm_many, quantize_array, weight_bits)
 
 Params = dict[str, Any]
 
@@ -45,48 +49,79 @@ Params = dict[str, Any]
 
 def init_params(config: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
-                device: str | torch.device = "cpu") -> Params:
+                device: str | torch.device = "cpu",
+                quant: str = "") -> Params:
     """Random-init params in the stacked-layer layout, on ``device``, from
     an explicit generator (which must live on the same device). Dense
-    weights are N(0, 1/fan_in) drawn in fp32 one layer at a time (the fp32
-    draw of a whole [L, D, F] stack would be 4x the stack's bf16 size),
-    norms are ones."""
+    weights are N(0, 1/fan_in) drawn in fp32 one layer (one expert) at a
+    time, cast to ``dtype``; norms are ones. With ``quant`` each quantizable
+    weight is quantized part by part into its preallocated ``{"q", "s"}``
+    leaves (models/quant.py), from the same ``dtype`` values, so the
+    full-precision tensor never exists; the draws are the same either way.
+    An MoE config (mixtral) gets its router and expert MLPs."""
     c = config
     dh = c.head_dim
 
     def norm_init(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    def dense_init(*shape):
-        out = torch.empty(shape, dtype=dtype, device=device)
+    def dense_init(*shape, path: str = ""):
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = 1.0 / math.sqrt(fan_in)
-        for part in (out if len(shape) == 3 else [out]):
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   device=device) * scale)
+        axis = contract_axis_for(path, len(shape)) if quant else None
+        if axis is None:
+            out = torch.empty(shape, dtype=dtype, device=device)
+            parts = out.flatten(0, -3) if len(shape) >= 3 else out[None]
+        else:
+            bits = weight_bits(quant, path)
+            out = empty_quantized(shape, axis, bits, device)
+            parts = (zip(out["q"].flatten(0, -3), out["s"].flatten(0, -2))
+                     if len(shape) >= 3 else [(out["q"], out["s"])])
+        for part in parts:
+            pshape = (part[0] if axis is not None else part).shape
+            if axis is not None and bits == 4:
+                pshape = (2 * pshape[0], pshape[1])
+            w = torch.randn(pshape, generator=generator,
+                            device=device).mul_(scale)
+            if axis is None:
+                part.copy_(w)
+            else:
+                w = w.to(dtype)
+                qa = quantize_array(w, axis - (len(shape) - w.dim()), bits)
+                part[0].copy_(qa["q"])
+                part[1].copy_(qa["s"])
         return out
 
-    params: Params = {
-        "embed": dense_init(c.vocab_size, c.d_model),
-        "final_norm": norm_init(c.d_model),
-        "layers": {
-            "attn_norm": norm_init(c.n_layers, c.d_model),
-            "wq": dense_init(c.n_layers, c.d_model, c.n_heads * dh),
-            "wk": dense_init(c.n_layers, c.d_model, c.n_kv_heads * dh),
-            "wv": dense_init(c.n_layers, c.d_model, c.n_kv_heads * dh),
-            "wo": dense_init(c.n_layers, c.n_heads * dh, c.d_model),
-            "mlp_norm": norm_init(c.n_layers, c.d_model),
-            "wg": dense_init(c.n_layers, c.d_model, c.d_ff),
-            "wu": dense_init(c.n_layers, c.d_model, c.d_ff),
-            "wd": dense_init(c.n_layers, c.d_ff, c.d_model),
-        },
+    L, D, F = c.n_layers, c.d_model, c.d_ff
+    embed = dense_init(c.vocab_size, D)
+    layers = {
+        "attn_norm": norm_init(L, D),
+        "wq": dense_init(L, D, c.n_heads * dh, path="layers.wq"),
+        "wk": dense_init(L, D, c.n_kv_heads * dh, path="layers.wk"),
+        "wv": dense_init(L, D, c.n_kv_heads * dh, path="layers.wv"),
+        "wo": dense_init(L, c.n_heads * dh, D, path="layers.wo"),
+        "mlp_norm": norm_init(L, D),
     }
+    if c.is_moe:
+        E = c.n_experts
+        layers["router"] = dense_init(L, D, E)
+        layers["wg"] = dense_init(L, E, D, F, path="layers.wg")
+        layers["wu"] = dense_init(L, E, D, F, path="layers.wu")
+        layers["wd"] = dense_init(L, E, F, D, path="layers.wd")
+    else:
+        layers["wg"] = dense_init(L, D, F, path="layers.wg")
+        layers["wu"] = dense_init(L, D, F, path="layers.wu")
+        layers["wd"] = dense_init(L, F, D, path="layers.wd")
+    params: Params = {"embed": embed, "final_norm": norm_init(D),
+                      "layers": layers}
     if c.attn_bias:
-        params["layers"]["bq"] = dense_init(c.n_layers, c.n_heads * dh)
-        params["layers"]["bk"] = dense_init(c.n_layers, c.n_kv_heads * dh)
-        params["layers"]["bv"] = dense_init(c.n_layers, c.n_kv_heads * dh)
+        layers["bq"] = dense_init(L, c.n_heads * dh)
+        layers["bk"] = dense_init(L, c.n_kv_heads * dh)
+        layers["bv"] = dense_init(L, c.n_kv_heads * dh)
     if not c.tie_embeddings:
-        params["lm_head"] = dense_init(c.vocab_size, c.d_model)
+        params["lm_head"] = dense_init(c.vocab_size, D, path="lm_head")
+    elif quant:
+        params["lm_head_q8"] = quantize_array(params["embed"], 1)
     return params
 
 
@@ -181,8 +216,9 @@ def zeros_kv(shape, dtype, kv_quant: str, device):
 
 
 def layer_of(side, i: int):
-    """Layer ``i`` of a stacked cache side (tensor or int8 dict), as views:
-    writes through them land in the stacked cache."""
+    """Layer ``i`` of a stacked leaf (tensor or ``{"q", "s"}`` dict: a cache
+    side or a quantized weight), as views: writes through them land in the
+    stacked leaf."""
     if isinstance(side, dict):
         return {"q": side["q"][i], "s": side["s"][i]}
     return side[i]
@@ -373,11 +409,13 @@ _GATE_ACTS = {
 }
 
 
-def swiglu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-               wd: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Gated MLP (SwiGLU for llama/qwen2, GeGLU for gemma via ``act``)."""
-    gate = _GATE_ACTS[act](x @ wg)
-    return (gate * (x @ wu)) @ wd
+def swiglu_mlp(x: torch.Tensor, wg, wu, wd,
+               act: str = "silu") -> torch.Tensor:
+    """Gated MLP (SwiGLU for llama/qwen2, GeGLU for gemma via ``act``).
+    Each weight is a tensor or a quantized ``{"q", "s"}`` dict
+    (models/quant.py) — ``mm`` dispatches."""
+    g, u = mm_many(x, (wg, wu))
+    return mm(_GATE_ACTS[act](g) * u, wd)
 
 
 def qkv_proj(h: torch.Tensor, lp: dict, config: ModelConfig):
@@ -386,7 +424,7 @@ def qkv_proj(h: torch.Tensor, lp: dict, config: ModelConfig):
     c = config
     B, T = h.shape[0], h.shape[1]
     dh = c.head_dim
-    qp, kp, vp = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    qp, kp, vp = mm_many(h, (lp["wq"], lp["wk"], lp["wv"]))
     if "bq" in lp:
         qp, kp, vp = qp + lp["bq"], kp + lp["bk"], vp + lp["bv"]
     return (qp.reshape(B, T, c.n_heads, dh),
@@ -410,13 +448,14 @@ def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
     page). A sliding-window model's window is threaded through the plain
     dense provider here; the kernels' providers carry it themselves.
     ``mlp_fn(h, layer_params)`` replaces the gated MLP (the JAX forward's
-    hook, used by the decode profiler's ablations)."""
+    hook: mixtral's MoE MLP, which an MoE config gets by default, and the
+    decode profiler's ablations)."""
     c = config
     B, T = tokens.shape
     dh = c.head_dim
-    if c.is_moe:
-        raise ValueError("MoE models are not ported to the PyTorch forward "
-                         "yet")
+    if mlp_fn is None and c.is_moe:
+        from .mixtral import make_mlp_fn
+        mlp_fn = make_mlp_fn(c)
     if c.sliding_window and attention_fn is dense_cache_attention:
         attention_fn = windowed_dense_attention(c.sliding_window)
 
@@ -432,7 +471,7 @@ def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
     layers = params["layers"]
     ys_k, ys_v = [], []
     for i in range(c.n_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+        lp = {name: layer_of(w, i) for name, w in layers.items()}
         h = rms_norm(x, lp["attn_norm"], c.rms_eps, c.rms_offset)
         q, k, v = qkv_proj(h, lp, c)
         q = apply_rope(q, cos, sin)
@@ -445,7 +484,7 @@ def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
         else:
             attn, _, _ = attention_fn(q, k, v, layer_of(cache.k, i),
                                       layer_of(cache.v, i), lengths, active)
-        x = x + attn @ lp["wo"]
+        x = x + mm(attn, lp["wo"])
         h = rms_norm(x, lp["mlp_norm"], c.rms_eps, c.rms_offset)
         if mlp_fn is not None:
             x = x + mlp_fn(h, lp)
@@ -459,16 +498,10 @@ def forward_hidden(params: Params, config: ModelConfig, tokens: torch.Tensor,
 
 def head_logits(params: Params, config: ModelConfig,
                 x: torch.Tensor) -> torch.Tensor:
-    """Logits ``x [..., D] · head [V, D]ᵀ`` accumulated into an fp32 output,
-    as the JAX head does (``preferred_element_type=float32``): bf16 weights
-    give logits without a bf16 rounding. On the card one GEMM writes fp32
-    (``out_dtype``); the CPU has no such GEMM, so it upcasts the operands."""
-    w = _select_head(params, config)
-    if x.device.type == "cuda" and x.dtype != torch.float32:
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), w.T,
-                        out_dtype=torch.float32)
-        return flat.reshape(*x.shape[:-1], w.shape[0])
-    return x.float() @ w.float().T
+    """Logits ``x [..., D] · head [V, D]ᵀ`` in fp32, as the JAX head
+    (models/quant.py ``head_matmul``: bf16 weights give logits without a
+    bf16 rounding; an int8 head contracts exactly in int32)."""
+    return head_matmul(x, _select_head(params, config))
 
 
 def forward(params: Params, config: ModelConfig, tokens: torch.Tensor,
@@ -483,6 +516,10 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor,
     return head_logits(params, config, x), cache
 
 
-def _select_head(params: Params, c: ModelConfig) -> torch.Tensor:
-    """The LM head weight: ``lm_head``, or the embed table when tied."""
-    return params["embed"] if c.tie_embeddings else params["lm_head"]
+def _select_head(params: Params, c: ModelConfig):
+    """The LM head weight: ``lm_head`` (untied), or for tied-embedding
+    models the int8 head copy ``lm_head_q8`` when quantized, else the embed
+    table itself."""
+    if c.tie_embeddings:
+        return params.get("lm_head_q8", params["embed"])
+    return params["lm_head"]

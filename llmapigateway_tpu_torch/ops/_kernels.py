@@ -37,7 +37,8 @@ GROUP_SIZES = (1, 2, 3, 4, 7, 8, 16)    # query heads per KV head the decode ker
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("paged_attention", "flash_attention", "kv_insert")  # csrc/<name>.cu
+SOURCES = ("paged_attention", "flash_attention", "kv_insert",
+           "w4a8_mm")  # csrc/<name>.cu
 HEADERS = ("attention_common.cuh", "decode_split.cuh", "prefill_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -243,6 +244,11 @@ def library(name: str) -> ctypes.CDLL:
         lib.kv_insert.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
         lib.empty_launch.argtypes = [ptr]
         entries = ("kv_insert", "empty_launch")
+    elif name == "w4a8_mm":
+        i64 = ctypes.c_longlong
+        lib.w4a8_mm.argtypes = ([ptr, i64, ptr, i64] + [ptr] * 3
+                                + [i32] * 5 + [ptr])
+        entries = ("w4a8_mm",)
     else:
         lib.flash_decode_attention.argtypes = (
             [ptr] * 11 + [i32] * 5 + [f32] + [i32] * 4 + [ptr])
@@ -333,6 +339,21 @@ def launch_kv_insert(cache, new, lengths) -> None:
     _call("kv_insert", "kv_insert", cache.device, new.data_ptr(),
           cache.data_ptr(), lengths.data_ptr(), B, KV, S,
           Dh * cache.element_size())
+
+
+def launch_w4a8_mm(xq, x_se: int, xs, xs_se: int, wq, ws, out,
+                   out_type: int) -> None:
+    """The W4A8 product (csrc/w4a8_mm.cu) over E experts: ``xq`` int8 rows
+    of K at ``x_se`` elements per expert (0: shared), ``xs`` fp32 row
+    scales at ``xs_se``, ``wq`` packed uint8 ``[E, N, K/2]``, ``ws`` fp32
+    ``[E, N]``, into ``out [E, M, N]`` of ``out_type`` (0 fp32, 1 bf16,
+    2 fp16, 3 the int32 sums). The wrapper (ops/quant_mm.py) checked the
+    operands."""
+    E, N, half_k = wq.shape
+    M = out.shape[1]
+    _call("w4a8_mm", "w4a8_mm", xq.device, xq.data_ptr(), x_se,
+          xs.data_ptr(), xs_se, wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+          E, M, N, 2 * half_k, out_type)
 
 
 def launch_empty(device) -> None:

@@ -26,9 +26,8 @@ passed the optional rungs are skipped and named in
    bench's ``--kv`` picks layouts, here ``--layout`` does) × ``--kv`` (bf16,
    int8 or both), then p50/p95 TTFT of ``--ttft-probes`` distinct-prompt
    requests injected into the first arm's saturated batch;
-2. ``--eight-b``: llama-3-8b at bf16 weights with int8 KV (the root
-   bench's north-star rung quantizes the weights too, which the port does
-   not yet), contiguous with TTFT, then paged;
+2. ``--eight-b``: llama-3-8b at int8 weights with int8 KV (the root
+   bench's north-star rung), contiguous with TTFT, then paged;
    ``--ttft-target MS``: that arm's engine (the headline preset's without
    ``--eight-b``) built with ``ttft_target_ms`` — every burst depth's
    decode graph captured at build — then decode tok/s through the real
@@ -40,12 +39,16 @@ passed the optional rungs are skipped and named in
    prefix hits, cached tokens), not from the wall clock;
 4. ``--long-ctx``: bf16 against int8 KV at a 2048-token context;
 5. ``--swa``: mistral-7b with its window against the same model without;
-6. ``--second-preset``: a mid-size preset (llama-3b-class).
+6. ``--second-preset``: a mid-size preset (llama-3b-class);
+7. ``--quant-rung``: the headline preset's weights at int8 (bf16 KV), int8
+   with int8 KV and int4 with int8 KV, contiguous, each with its weight bytes
+   and ``speedup_vs_bf16`` over the contiguous bf16 arm, and int4's
+   ``speedup_vs_int8`` (the root bench's quant rungs).
 
 The root bench's other rungs are refused here by naming the port-queue item
-that brings them (``--quant-rung``, ``--spec-*``, ``--disagg-ab``,
-``--flight-ab``, ``--annot-ab``, ``--failover-ab``); its TPU chip lease and
-backend probe have no counterpart.
+that brings them (``--spec-*``, ``--disagg-ab``, ``--flight-ab``,
+``--annot-ab``, ``--failover-ab``); its TPU chip lease and backend probe
+have no counterpart.
 
 Runs on the card (``--device cuda``, the default; without a card it prints
 the failure line and exits 2). ``--device cpu`` runs the same code on the
@@ -69,6 +72,7 @@ import numpy as np
 import torch
 
 from ..config.schemas import LocalEngineConfig, not_ported
+from ..engine.checkpoint import unique_bytes, weight_count
 from ..engine.engine import GenRequest, InferenceEngine, resolve_device
 from ..models.config import get_preset
 from . import note
@@ -79,16 +83,18 @@ EIGHT_B = dict(preset="llama-3-8b", batch=32, seq=512, steps=96)
 SWA = dict(preset="mistral-7b", seq=8192, prompt=7680, batch=4, steps=32)
 LONG_CTX = dict(seq=4096, prompt=2048, batch=4, steps=64)
 SECOND_STEPS = 96
+# The quant rung's arms (name, weight quant, KV quant), as the root bench.
+QUANT_ARMS = (("quant_int8", "int8", ""), ("quant_int8_kv8", "int8", "int8"),
+              ("quant_int4_kv8", "int4", "int8"))
 # Root-bench rungs the port cannot serve yet: flag → port-queue item.
 REFUSED = {
-    "quant_rung": "weight quantization",
     "spec_draft": "speculative decoding",
     "spec_ladder": "speculative decoding",
     "spec_mixed": "speculative decoding",
     "disagg_ab": "disaggregation, supervision, observability",
     "flight_ab": "disaggregation, supervision, observability",
     "annot_ab": "disaggregation, supervision, observability",
-    "failover_ab": "breakers and deadlines, remote providers",
+    "failover_ab": "disaggregation, supervision, observability",
 }
 
 
@@ -139,18 +145,9 @@ def build_engine(args, device, kv_layout: str, preset: str | None = None,
 
 
 def _model_footprint(engine) -> tuple[int, int]:
-    """(n_params, param_bytes) of the engine's weights: every resident
-    parameter tensor, counted once."""
-    n = b = 0
-    stack = [engine.params]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-        elif isinstance(node, torch.Tensor):
-            n += node.numel()
-            b += node.numel() * node.element_size()
-    return n, b
+    """(n_params, param_bytes) of the engine's weights
+    (engine/checkpoint.py ``weight_count`` and ``unique_bytes``)."""
+    return weight_count(engine.params), unique_bytes(engine.params)
 
 
 def decode_footprint(prompt_len: int, steps: int, warmup: int,
@@ -507,6 +504,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ttft-target", type=float, default=0.0,
                     help="ttft_target_ms of the burst-depth controller rung "
                          "(the root bench's 200; 0 disables)")
+    ap.add_argument("--quant-rung", type=int, default=0,
+                    help="weight-quantization rung on the headline preset, "
+                         "contiguous: int8, int8 + int8 KV, int4 + int8 KV, "
+                         "each against the contiguous bf16 arm (0 disables)")
     ap.add_argument("--shared-prefix-len", type=int, default=512)
     ap.add_argument("--shared-prefix-tail", type=int, default=32)
     ap.add_argument("--shared-prefix-warm", type=int, default=6)
@@ -583,12 +584,12 @@ def main(argv=None) -> dict:
             if i == 0:
                 result["value"] = r["tok_s"]
 
-    # 2. llama-3-8b, bf16 weights + int8 KV: contiguous (+ TTFT), paged.
+    # 2. llama-3-8b, int8 weights + int8 KV: contiguous (+ TTFT), paged.
     if args.eight_b and not over_budget("eight_b"):
         bargs = argparse.Namespace(**vars(args))
         bargs.seq, bargs.batch = EIGHT_B["seq"], EIGHT_B["batch"]
         bargs.prompt_len = min(args.prompt_len, 128)
-        r8 = {"preset": EIGHT_B["preset"], "weights": "bf16",
+        r8 = {"preset": EIGHT_B["preset"], "weights": "int8",
               "kv_quant": "int8", "batch": bargs.batch}
         for layout in ("contiguous", "paged"):
             if layout == "paged" and over_budget("eight_b_paged"):
@@ -597,7 +598,7 @@ def main(argv=None) -> dict:
             def arm():
                 engine, _ = build_engine(bargs, device, layout,
                                          preset=EIGHT_B["preset"],
-                                         kv_quant="int8")
+                                         kv_quant="int8", quant="int8")
                 r = fill_and_time_decode(engine, bargs,
                                          steps=EIGHT_B["steps"])
                 if layout == "contiguous" and not args.skip_ttft:
@@ -699,6 +700,32 @@ def main(argv=None) -> dict:
         r = guarded("second_preset", second)
         if r is not None:
             extra["second_preset"] = r
+
+    # 7. Weight quantization on the headline preset, contiguous: int8
+    #    weights, int8 weights + int8 KV, int4 weights + int8 KV.
+    if args.quant_rung:
+        base = extra.get("contiguous_bf16", {}).get("tok_s")
+        for name, quant, kvq in QUANT_ARMS:
+            if over_budget(name):
+                continue
+
+            def arm():
+                engine, init_s = build_engine(args, device, "contiguous",
+                                              kv_quant=kvq, quant=quant)
+                r = fill_and_time_decode(engine, args)
+                return {"init_s": init_s, **{k: r[k] for k in (
+                    "tok_s", "ms_per_decode_step", "mfu", "hbm_gbps",
+                    "roofline_fraction")},
+                    "weight_bytes": _model_footprint(engine)[1],
+                    "speedup_vs_bf16": (round(r["tok_s"] / base, 2)
+                                        if base else None)}
+            r = guarded(name, arm)
+            if r is not None:
+                extra[name] = r
+        int8 = extra.get("quant_int8_kv8", {}).get("tok_s")
+        if int8 and "quant_int4_kv8" in extra:
+            extra["quant_int4_kv8"]["speedup_vs_int8"] = round(
+                extra["quant_int4_kv8"]["tok_s"] / int8, 2)
 
     if errors:
         extra["errors"] = errors

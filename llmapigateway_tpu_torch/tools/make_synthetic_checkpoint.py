@@ -13,7 +13,11 @@ path at full size. The shards are written by the port's own writer
 
     python -m llmapigateway_tpu_torch.tools.make_synthetic_checkpoint
         --preset llama-3-8b --out DIR [--dtype bfloat16] [--shard-gb 4]
-        [--seed 0]
+        [--seed 0] [--n-layers N]
+
+``--n-layers`` cuts the preset's depth (its width stays): a mixtral-8x7b
+checkpoint of one or two layers, HF Mixtral names and all, holds a full-
+width MoE layer in a few GB; ``config.json`` records the cut depth.
 
 Then serve it (``providers.json`` engine ``"model_path": DIR``) or time its
 load with ``python -m llmapigateway_tpu_torch.tools.profile_checkpoint_load
@@ -22,6 +26,7 @@ DIR``. Prints one JSON line last and returns it from ``main(argv)``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
@@ -113,9 +118,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     ap.add_argument("--shard-gb", type=float, default=4.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="depth of the checkpoint (0: the preset's)")
     args = ap.parse_args(argv)
 
     cfg = get_preset(args.preset)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     dtype = DTYPES[args.dtype]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

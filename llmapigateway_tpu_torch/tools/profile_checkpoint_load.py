@@ -11,10 +11,12 @@ bytes (a tied ``lm_head`` counted once), the peak host RSS the build added,
 and the wall seconds of one greedy request from a cold engine.
 
     python -m llmapigateway_tpu_torch.tools.profile_checkpoint_load DIR
-        [--kv-quant int8] [--batch 8] [--seq 1024] [--tokens 32]
-        [--device cuda]
+        [--quant int8|int4] [--kv-quant int8] [--batch 8] [--seq 1024]
+        [--tokens 32] [--device cuda]
 
-``--quant`` (weight quantization) is refused until it is ported. Prints one
+With ``--quant`` each tensor is quantized as it is read, at the file's own
+precision (``bytes_read_gb`` counts the file's bytes, ``device_param_gb``
+the quantized leaves'). Prints one
 JSON line last and returns it from ``main(argv)``; on the card it carries
 the card's name and power limit as ``nvidia-smi`` prints them.
 """
@@ -44,18 +46,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card fails")
     args = ap.parse_args(argv)
-    if args.quant:
-        raise ValueError(
-            f"--quant {args.quant}: weight quantization is not ported to the "
-            f"PyTorch engine yet (ROADMAP.md, port queue: weight "
-            f"quantization)")
     device = resolve_device(args.device)
 
     rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     t0 = time.monotonic()
     engine = InferenceEngine(LocalEngineConfig(
         model_path=args.model_dir, max_batch_size=args.batch,
-        max_seq_len=args.seq, kv_quant=args.kv_quant), device=device)
+        max_seq_len=args.seq, quant=args.quant, kv_quant=args.kv_quant),
+        device=device)
     init_s = time.monotonic() - t0
     rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     load = engine.load_stats
@@ -75,7 +73,7 @@ def main(argv=None) -> dict:
     req, serve_s = asyncio.run(serve())
     res = {
         "model_dir": args.model_dir, "device": str(device),
-        "quant": "bf16", "kv_quant": args.kv_quant or "bf16",
+        "quant": args.quant or "bf16", "kv_quant": args.kv_quant or "bf16",
         "engine_init_s": round(init_s, 2),
         "load_s": load["seconds"], "read_s": load["read_s"],
         "bytes_read_gb": load["bytes"] / 1e9,

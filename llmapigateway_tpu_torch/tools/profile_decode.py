@@ -13,6 +13,11 @@ weights through concatenated QKV and gate/up GEMMs (``fused_stream``), and
 the sampler's vocabulary sort alone (``sort_alone``). Projections are
 ``torch.matmul``, as XLA computes them outside Pallas.
 
+``--quant int8|int4`` quantizes the weights as the engine does (one layer
+at a time, models/quant.py); a mixtral preset runs its MoE MLP.
+``--trace`` also traces one greedy step under ``torch.profiler`` (its
+launches, busy milliseconds and costliest kernels).
+
 Variants: full (forward + sample), greedy (forward + argmax), nosample
 (forward only, token fed back unchanged), noinsert (attention over the
 stale cache, no cache write), noattn (attention replaced by zeros: no
@@ -21,7 +26,7 @@ insert, no attention), nomlp (MLP replaced by identity).
     python -m llmapigateway_tpu_torch.tools.profile_decode
         [--preset tinyllama-1.1b] [--batch 8] [--seq 1024] [--burst 32]
         [--reps 3] [--variants full,greedy,...] [--kernels] [--kv-quant]
-        [--device cuda]
+        [--quant int8|int4] [--trace] [--device cuda]
 """
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ import torch
 
 from ..engine.engine import resolve_device
 from ..engine.sampling import SamplingParams, sample
+from ..engine.checkpoint import unique_bytes
 from ..models import llama
 from ..models.config import get_preset
+from ..models.quant import mm
 from ..ops.flash_attention import make_cache_attention_fn
 from . import best_ms, note
 
@@ -42,16 +49,13 @@ VARIANTS = "full,greedy,nosample,noinsert,noattn,nomlp"
 
 
 def build(args, device):
-    """(config, params, cache): random bf16 weights from a seed and a
+    """(config, params, cache): random bf16 weights from a seed (quantized
+    layer by layer with ``--quant``; MoE experts for a mixtral preset) and a
     zeroed contiguous cache [L, B, KV, S, Dh] (int8 with ``--kv-quant``)."""
-    if args.quant:
-        raise ValueError(
-            f"--quant {args.quant}: weight quantization is not ported to the "
-            f"PyTorch engine yet (ROADMAP.md, port queue: weight "
-            f"quantization)")
     c = get_preset(args.preset)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = llama.init_params(c, gen, dtype=torch.bfloat16, device=device)
+    params = llama.init_params(c, gen, dtype=torch.bfloat16, device=device,
+                               quant=args.quant)
     cache = llama.KVCache.create(c, args.batch, args.seq,
                                  kv_quant="int8" if args.kv_quant else "",
                                  device=device)
@@ -168,19 +172,23 @@ def time_weights_stream(c, params, args, device):
     decode step's shapes ([B, D] activations): the best step time these
     GEMMs reach on this device. Every output feeds the carry or the aux
     sum."""
+    if c.is_moe:
+        note("weights_stream: not run for an MoE model (dense GEMMs only)")
+        return None
     lay = params["layers"]
     keys = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 
     def one_pass(x):
         h, aux = x, torch.zeros((), device=device)
         for i in range(c.n_layers):
-            q = h @ lay["wq"][i]
-            k = h @ lay["wk"][i]
-            v = h @ lay["wv"][i]
-            o = q @ lay["wo"][i]
-            g = h @ lay["wg"][i]
-            u = h @ lay["wu"][i]
-            d = (g * u) @ lay["wd"][i]
+            lp = {k: llama.layer_of(lay[k], i) for k in keys}
+            q = mm(h, lp["wq"])
+            k = mm(h, lp["wk"])
+            v = mm(h, lp["wv"])
+            o = mm(q, lp["wo"])
+            g = mm(h, lp["wg"])
+            u = mm(h, lp["wu"])
+            d = mm(g * u, lp["wd"])
             h, aux = h + o + d, aux + k.float().sum() + v.float().sum()
         logits = llama.head_logits(params, c, h)
         return h, aux + logits.sum()
@@ -190,8 +198,8 @@ def time_weights_stream(c, params, args, device):
     best, _, _ = best_ms(lambda: _stream_burst(one_pass, x, args.burst),
                          device, args.reps)
     sec = best / args.burst / 1e3
-    head = params["embed"] if c.tie_embeddings else params["lm_head"]
-    nbytes = sum(lay[k].nbytes for k in keys) + head.nbytes
+    nbytes = unique_bytes({k: lay[k] for k in keys}) + unique_bytes(
+        {"head": llama._select_head(params, c)})
     note(f"{'weights_stream':10s}: {sec * 1e3:8.3f} ms/step   "
          f"({nbytes / 1e9:.2f} GB of weights -> {nbytes / sec / 1e9:.0f} "
          f"GB/s achieved)")
@@ -201,7 +209,10 @@ def time_weights_stream(c, params, args, device):
 def time_weights_stream_fused(c, params, args, device):
     """The same weight bytes through fused projections — wqkv = [wq|wk|wv]
     and wgu = [wg|wu] concatenated on the output axis (6 GEMMs a layer
-    instead of 7)."""
+    instead of 7). Not run for quantized or MoE weights."""
+    if args.quant or c.is_moe:
+        note("fused_stream: not run for quantized or MoE weights")
+        return None
     lay = params["layers"]
     wqkv = torch.cat([lay["wq"], lay["wk"], lay["wv"]], dim=-1)
     wgu = torch.cat([lay["wg"], lay["wu"]], dim=-1)
@@ -248,6 +259,43 @@ def time_sort_alone(args, V, device):
     return ms
 
 
+def trace_step(c, params, cache, args, device) -> dict:
+    """One greedy step with the kernels' attention under ``torch.profiler``:
+    the kernels it launched (on the card; the CPU ops on the CPU), their
+    device time, and the costliest names by time — what a quantized step's
+    extra small kernels cost beside the products."""
+    from torch.profiler import ProfilerActivity, profile
+    step = make_step(c, "greedy", make_cache_attention_fn(
+        window=c.sliding_window))
+    B = args.batch
+    tokens = torch.zeros((B,), dtype=torch.long, device=device)
+    lengths = torch.full((B,), 128, dtype=torch.int32, device=device)
+    active = torch.ones((B,), dtype=torch.bool, device=device)
+    samp = sampling_params(B, device)
+    cuda = device.type == "cuda"
+    for _ in range(2):
+        step(params, cache, tokens, lengths, active, samp, None)
+    if cuda:
+        torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA if cuda
+                             else ProfilerActivity.CPU]) as prof:
+        step(params, cache, tokens, lengths, active, samp, None)
+        if cuda:
+            torch.cuda.synchronize(device)
+    rows = []
+    for e in prof.key_averages():
+        us = (e.device_time_total if cuda else e.self_cpu_time_total)
+        if us > 0 and e.count > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    out = {"launches_per_step": sum(n for _, n, _ in rows),
+           "busy_ms_per_step": sum(ms for ms, _, _ in rows),
+           "top": [[round(ms, 4), n, name[:100]] for ms, n, name in rows[:12]]}
+    note(f"{'trace':10s}: {out['launches_per_step']} launches, "
+         f"{out['busy_ms_per_step']:.3f} ms busy a step")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         prog="python -m llmapigateway_tpu_torch.tools.profile_decode",
@@ -263,8 +311,13 @@ def main(argv=None) -> dict:
                          "(make_cache_attention_fn)")
     ap.add_argument("--quant", nargs="?", const="int8", default="",
                     choices=("", "int8", "int4"),
-                    help="weight quantization (not ported: refused)")
+                    help="weight quantization of the layer matmuls and the "
+                         "head (models/quant.py)")
     ap.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
+    ap.add_argument("--trace", action="store_true",
+                    help="also trace one greedy step with the kernels' "
+                         "attention (torch.profiler): launches, busy ms, "
+                         "the costliest kernels")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card fails")
     args = ap.parse_args(argv)
@@ -284,6 +337,8 @@ def main(argv=None) -> dict:
                 c, params, cache, args, "full", device,
                 attention_fn=make_cache_attention_fn(
                     window=c.sliding_window), label="kernels")
+        trace = trace_step(c, params, cache, args, device) \
+            if args.trace else None
         results["weights_stream"] = time_weights_stream(c, params, args,
                                                         device)
         del cache                   # room for the fused copies
@@ -295,6 +350,8 @@ def main(argv=None) -> dict:
     f = results.get("full")
     if f is not None:
         for k, v in results.items():
+            if v is None:
+                continue
             if k == "full":
                 note(f"full step          : {f:8.3f}")
             elif k in ("sort_alone", "kernels", "weights_stream",
@@ -303,7 +360,9 @@ def main(argv=None) -> dict:
             else:
                 note(f"delta full-{k:8s}: {f - v:8.3f}")
     print(json.dumps({"device": str(device), "preset": args.preset,
-                      "ms_per_step": results}), flush=True)
+                      "quant": args.quant or "bf16",
+                      "ms_per_step": results,
+                      **({"trace": trace} if trace else {})}), flush=True)
     return results
 
 

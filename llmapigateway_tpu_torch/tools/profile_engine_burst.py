@@ -21,7 +21,7 @@ scheduler, so the cache sees none of this traffic.
 
     python -m llmapigateway_tpu_torch.tools.profile_engine_burst
         [--attention auto] [--burst 32] [--kv contiguous|paged]
-        [--preset tinyllama-1.1b] [--device cuda]
+        [--preset tinyllama-1.1b] [--quant int8|int4] [--device cuda]
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ def build_engine(args, device) -> InferenceEngine:
         preset=args.preset, dtype="bfloat16", max_batch_size=8,
         max_seq_len=1024, prefill_chunk=PROMPT_TOKENS,
         decode_burst=args.burst, kv_layout=args.kv,
-        attention=args.attention)
+        attention=args.attention, quant=args.quant)
     return InferenceEngine(cfg, device=device)
 
 
@@ -84,13 +84,15 @@ def main(argv=None) -> dict:
                     choices=("contiguous", "paged"))
     ap.add_argument("--preset", default="tinyllama-1.1b",
                     help="the JAX tool's model; a tiny preset for CPU runs")
+    ap.add_argument("--quant", default="", choices=("", "int8", "int4"),
+                    help="weight quantization (models/quant.py)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card fails")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     burst = args.burst
     res = {"device": str(device), "preset": args.preset, "kv": args.kv,
-           "burst": burst}
+           "quant": args.quant or "bf16", "burst": burst}
 
     t0 = time.monotonic()
     engine = build_engine(args, device)

@@ -2,9 +2,10 @@
 at ``tiny-test`` size: the one-JSON-line contract (``metric``, ``value``,
 ``unit``, ``extra``) of the root ``bench.py``, every headline arm, TTFT
 under load, and the shared-prefix rung, whose proof that prefill was
-skipped comes from the engine's counters; the root bench's rungs the port
-cannot serve are refused with their port-queue item named, and the card is
-the default device."""
+skipped comes from the engine's counters, and the weight-quantization
+rung's three arms; the root bench's rungs the port cannot serve are
+refused with their port-queue item named, and the card is the default
+device."""
 import json
 
 import pytest
@@ -48,18 +49,38 @@ def test_cpu_run_prints_the_contract_line(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--quant-rung", "weight quantization"),
     ("--spec-draft", "speculative decoding"),
     ("--spec-ladder", "speculative decoding"),
     ("--spec-mixed", "speculative decoding"),
     ("--disagg-ab", "disaggregation, supervision, observability"),
     ("--flight-ab", "disaggregation, supervision, observability"),
     ("--annot-ab", "disaggregation, supervision, observability"),
-    ("--failover-ab", "breakers and deadlines, remote providers"),
+    ("--failover-ab", "disaggregation, supervision, observability"),
 ])
 def test_unported_rungs_are_refused(flag, item):
     with pytest.raises(ValueError, match=f"{flag}.*ROADMAP.md.*{item}"):
         bench.main(TINY + [flag, "1"])
+
+
+def test_quant_rung_reports_its_three_arms():
+    """``--quant-rung``: the headline preset's weights at int8, int8 with
+    int8 KV and int4 with int8 KV, contiguous, each against the contiguous
+    bf16 arm; int4 also against int8. The quantized arms hold fewer weight
+    bytes than bf16 would, int4 fewer than int8."""
+    result = bench.main(TINY + ["--quant-rung", "1", "--layout",
+                                "contiguous", "--kv", "bf16", "--skip-ttft",
+                                "--shared-prefix", "0"])
+    extra = result["extra"]
+    assert "errors" not in extra, extra.get("errors")
+    base = extra["contiguous_bf16"]["tok_s"]
+    for arm in ("quant_int8", "quant_int8_kv8", "quant_int4_kv8"):
+        r = extra[arm]
+        assert r["tok_s"] > 0
+        assert r["speedup_vs_bf16"] == round(r["tok_s"] / base, 2)
+    int4, int8 = extra["quant_int4_kv8"], extra["quant_int8_kv8"]
+    assert int4["speedup_vs_int8"] == round(int4["tok_s"] / int8["tok_s"], 2)
+    assert int4["weight_bytes"] < int8["weight_bytes"] == \
+        extra["quant_int8"]["weight_bytes"]
 
 
 def test_ttft_target_rung_runs_the_controller_through_the_scheduler(

@@ -3,7 +3,9 @@ its safetensors reader (utils/safetensors_lite.py) to the ``safetensors``
 package, bit for bit; its loader (engine/checkpoint.py) to the JAX
 ``load_checkpoint``, leaf for leaf with ``torch.equal``, on tiny
 checkpoints of the llama, qwen2 (QKV biases), phi3 (fused qkv and gate_up)
-and gemma (tied embeddings) shapes; its ``_config_from_checkpoint`` to the
+and gemma (tied embeddings) shapes, and quantized (int8, int4; mixtral's
+stacked experts, a tied head copy) to the JAX load through its
+``_np_quantize`` hook; its ``_config_from_checkpoint`` to the
 JAX one field by field; both loaders refusing the same bad checkpoints;
 and an engine built from ``model_path`` streaming greedily what the same
 engine streams with the JAX-loaded params, held by the JAX model. The
@@ -171,6 +173,64 @@ def test_loader_matches_jax_loader(tmp_path, monkeypatch, case, preset,
         assert got["lm_head"].data_ptr() != got["embed"].data_ptr()
 
 
+QUANT_LOAD_CASES = [
+    # (case, preset, checkpoint dtype, quant)
+    ("mixtral-int8", "tiny-moe-test", "float32", "int8"),
+    ("mixtral-int4", "tiny-moe-test", "bfloat16", "int4"),
+    ("qwen2-tied-int8", "tiny-qwen-test", "float32", "int8"),
+]
+
+
+def _jax_quantized_load(path, jcfg, quant):
+    """The JAX engine's quantized load (engine.py:573-609): its
+    ``preprocess`` hook quantizes each tensor at the file's precision with
+    ``_np_quantize``; a tied model's head copy is quantized from the placed
+    embed."""
+    from llmapigateway_tpu.models.quant import (QUANT_TOP_KEYS,
+                                                _np_quantize, quantize_array,
+                                                quantizes, weight_bits)
+
+    def preprocess(path_, arr):
+        if quantizes(path_):
+            return _np_quantize(arr, 1 if path_ in QUANT_TOP_KEYS else 0,
+                                bits=weight_bits(quant, path_))
+        return arr.astype(np.float32)
+    params = jck.load_checkpoint(path, jcfg, dtype=jnp.float32,
+                                 preprocess=preprocess)
+    if jcfg.tie_embeddings:
+        params["lm_head_q8"] = quantize_array(params["embed"], 1)
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.mark.parametrize("case,preset,ck_dtype,quant", QUANT_LOAD_CASES,
+                         ids=[c[0] for c in QUANT_LOAD_CASES])
+def test_quantized_load_matches_jax_preprocess(tmp_path, monkeypatch, case,
+                                               preset, ck_dtype, quant):
+    """Loaded with ``quant``, every leaf — the MoE experts stacked ``[L, E,
+    D, F]`` and the router ``[L, D, E]`` included — equals the JAX load
+    through its ``_np_quantize`` hook on the same tensors, in the port's
+    storage (N-major levels, int4 packed); the tied head copy too. Each
+    run of rows quantizes on its own (runs of 3000 bytes)."""
+    path = write_checkpoint(tmp_path / case, preset, ck_dtype)
+    cfg = tck._config_from_checkpoint(path)
+    monkeypatch.setattr(tck, "CHUNK_BYTES", 3000)
+    got = tck.load_checkpoint(path, cfg, dtype=torch.float32, quant=quant)
+    want = params_from_jax(_jax_quantized_load(
+        path, j_config_from_checkpoint(str(path)), quant))
+    if cfg.tie_embeddings:
+        assert got["lm_head"] is got["embed"]
+        del want["lm_head"], got["lm_head"]
+    else:
+        assert got["lm_head"]["q"].dtype == torch.int8     # int8 under int4
+    assert_trees_equal(want, got)
+    if cfg.is_moe:
+        half = 2 if quant == "int4" else 1
+        assert got["layers"]["wg"]["q"].shape == (
+            cfg.n_layers, cfg.n_experts, cfg.d_model // half, cfg.d_ff)
+        assert got["layers"]["router"].shape == (cfg.n_layers, cfg.d_model,
+                                                 cfg.n_experts)
+
+
 def _config(model_type, **extra):
     return {"model_type": model_type, "vocab_size": 320, "hidden_size": 96,
             "num_hidden_layers": 3, "num_attention_heads": 6,
@@ -291,9 +351,9 @@ def test_refusals_come_before_any_tensor_is_read(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="cannot run on the card"):
         InferenceEngine(LocalEngineConfig(model_path=str(path)),
                         device="cuda")
-    with pytest.raises(ValueError, match="weight quantization"):
-        InferenceEngine(LocalEngineConfig(model_path=str(path), quant="int8"),
-                        device="cpu")
+    with pytest.raises(ValueError, match="speculative decoding"):
+        InferenceEngine(LocalEngineConfig(model_path=str(path), quant="int8",
+                                          spec_draft_len=2), device="cpu")
 
 
 @pytest.mark.parametrize("package", ["tokenizers", "jinja2"])

@@ -5,22 +5,29 @@ the configuration (and the knobs with no meaning off the TPU) stays
 accepted, and a default config still builds. The provider and rule knobs
 of the gateway around the engine (breaker, deadline, SLO, rotation and
 sub-provider knobs) build and are applied to a chain with a local
-target."""
+target. A non-zero ``hbm_headroom_watermark`` sheds admissions with 429
+and Retry-After below it, and is inert on the CPU."""
+import functools
 import json
+import math
 
 import pytest
+from aiohttp.test_utils import TestClient, TestServer
 
 from llmapigateway_tpu_torch.config.loader import ConfigLoader
 from llmapigateway_tpu_torch.config.schemas import (ConfigError,
                                                     LocalEngineConfig)
+from llmapigateway_tpu_torch.config.settings import Settings
 from llmapigateway_tpu_torch.db.rotation import RotationDB
 from llmapigateway_tpu_torch.engine.engine import InferenceEngine
 from llmapigateway_tpu_torch.obs.slo import resolve_slo
 from llmapigateway_tpu_torch.providers.base import (CompletionError,
                                                     NullUsageObserver,
                                                     Provider)
+from llmapigateway_tpu_torch.providers.local import make_local_provider
 from llmapigateway_tpu_torch.reliability.breaker import BreakerRegistry
 from llmapigateway_tpu_torch.routing.router import Router
+from llmapigateway_tpu_torch.server.app import build_app
 
 ENGINE = dict(preset="tiny-test", kv_layout="paged", kv_page_size=16,
               prefix_cache=False, max_batch_size=2, max_seq_len=64,
@@ -180,3 +187,67 @@ def test_refusals_are_config_errors():
     with pytest.raises(ConfigError):
         InferenceEngine(LocalEngineConfig(
             **{**ENGINE, "supervisor": {"watchdog_ms": 1.0}}), device="cpu")
+
+
+# -- hbm_headroom_watermark ----------------------------------------------------
+
+def _watermark_app(tmp_path, watermark):
+    (tmp_path / "providers.json").write_text(json.dumps([
+        {"local": {"type": "local", "engine": {
+            **ENGINE, "hbm_headroom_watermark": watermark}}}]))
+    (tmp_path / "models_fallback_rules.json").write_text(json.dumps([
+        {"gateway_model_name": "gw/local",
+         "fallback_models": [{"provider": "local", "model": "tiny"}]}]))
+    settings = Settings(fallback_provider="local", config_dir=tmp_path,
+                        db_dir=tmp_path / "db")
+    return build_app(settings, loader=ConfigLoader(tmp_path, "local"),
+                     local_factory=functools.partial(make_local_provider,
+                                                     device="cpu"))
+
+
+CHAT = {"model": "gw/local", "stream": False, "temperature": 0,
+        "max_tokens": 3, "messages": [{"role": "user", "content": "hi"}]}
+
+
+async def test_watermark_sheds_with_429_and_retry_after(tmp_path):
+    """With less free device memory than ``hbm_headroom_watermark`` (an
+    injected memory function: what a card's ``mem_get_info`` and the
+    allocator report), admission sheds like a full queue — 429 with the
+    engine's Retry-After — and counts ``watermark_sheds``; the reading is
+    cached for its TTL; with headroom back above the watermark the next
+    request is served."""
+    app = _watermark_app(tmp_path, 0.25)
+    async with TestClient(TestServer(app)) as client:
+        engine = (await app["gateway"].registry.get("local")).engine
+        reads = []
+
+        def mem_fn():
+            reads.append(1)
+            return {"bytes_free": free[0], "bytes_total": 100}
+        free = [10]
+        engine.headroom.mem_fn = mem_fn
+        for _ in range(2):
+            resp = await client.post("/v1/chat/completions", json=CHAT)
+            assert resp.status == 429
+            assert resp.headers["Retry-After"] == str(max(1, math.ceil(
+                engine.retry_after_hint_s())))
+        assert engine.stats()["watermark_sheds"] == 2
+        assert len(reads) == 1                   # cached for its TTL
+        free[0] = 40
+        engine.headroom.ttl_s = 0.0
+        resp = await client.post("/v1/chat/completions", json=CHAT)
+        assert resp.status == 200
+        assert engine.stats()["watermark_sheds"] == 2
+
+
+async def test_watermark_is_inert_on_the_cpu(tmp_path):
+    """On the CPU there is no memory function unless one is injected: the
+    watermark sheds nothing, as in the JAX engine."""
+    app = _watermark_app(tmp_path, 0.9)
+    async with TestClient(TestServer(app)) as client:
+        engine = (await app["gateway"].registry.get("local")).engine
+        assert engine.headroom.mem_fn is None
+        assert engine.headroom.fraction() is None
+        resp = await client.post("/v1/chat/completions", json=CHAT)
+        assert resp.status == 200
+        assert engine.stats()["watermark_sheds"] == 0

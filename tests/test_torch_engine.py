@@ -25,14 +25,14 @@ from llmapigateway_tpu.engine.engine import GenRequest as JRequest
 from llmapigateway_tpu.engine.engine import InferenceEngine as JEngine
 from llmapigateway_tpu.engine.paged import PageAllocator as JAllocator
 from llmapigateway_tpu.engine.prefix_cache import RadixPrefixCache as JCache
-from llmapigateway_tpu.models import llama as jllama
+from llmapigateway_tpu.models import forward_fn as jforward_fn
 from llmapigateway_tpu.models.config import get_preset as jget_preset
 from llmapigateway_tpu.ops.paged_attention import (
     PagedKVCache as JPagedKVCache, make_paged_attention_fn as jmake_paged)
 from llmapigateway_tpu_torch.config.schemas import LocalEngineConfig
 from llmapigateway_tpu_torch.engine.engine import (GenRequest,
                                                    InferenceEngine)
-from llmapigateway_tpu_torch.models import llama as tllama
+from llmapigateway_tpu_torch.models import forward_fn
 from llmapigateway_tpu_torch.models.config import get_preset
 from llmapigateway_tpu_torch.models.convert import params_from_jax
 from llmapigateway_tpu_torch.ops.paged_attention import (
@@ -106,43 +106,55 @@ def reference_env() -> dict:
     return env
 
 
-def assert_jax_model_greedy(jparams, geometry, prompts, streams, page=16):
+def assert_jax_model_greedy(jparams, geometry, prompts, streams, page=16,
+                            tol=TOL):
     """Each port stream is the JAX model's own greedy continuation of its
-    prompt. Teacher-forced over prompt + stream in one forward call, the
-    JAX model (reference attention, the geometry's KV type and window) and
-    the port's give logits within TOL of each other, and at every generated
-    position the port's token has the largest JAX logit, or one within TOL
-    of it (a near tie). ``jparams``: the JAX params as numpy arrays."""
+    prompt. Teacher-forced over prompt + stream in one forward call (every
+    stream a row, padded at its end to a common length that is a multiple
+    of 64, which causal attention keeps out of the real positions), the JAX
+    model (reference attention, the geometry's KV type and window) and the
+    port's give logits within ``tol`` of each other, and at every generated
+    position the port's token has the largest JAX logit, or one within
+    ``tol`` of it (a near tie). ``jparams``: the JAX params as numpy arrays
+    (a quantized or MoE tree too: each package's family forward runs; a
+    quantized model's tests pass their own ``tol``)."""
     jcfg = jget_preset(geometry["preset"])
     tcfg = get_preset(geometry["preset"])
     tparams = params_from_jax(jparams)
+    jforward, tforward = jforward_fn(jcfg), forward_fn(tcfg)
     kv_quant = geometry.get("kv_quant", "")
-    for prompt, tokens in zip(prompts, streams):
-        seq = list(prompt) + list(tokens[:-1])
-        n_pages = -(-len(seq) // page)
-        table = np.arange(1, n_pages + 1, dtype=np.int32)[None]
-        jlog, _ = jllama.forward(
-            jparams, jcfg, jnp.asarray([seq], jnp.int32),
-            jnp.zeros((1,), jnp.int32),
-            JPagedKVCache.create(jcfg, n_pages + 1, page, dtype=jnp.float32,
-                                 kv_quant=kv_quant),
-            attention_fn=jmake_paged(jnp.asarray(table),
-                                     max_seq=n_pages * page, impl="reference",
-                                     window=jcfg.sliding_window))
-        tlog, _ = tllama.forward(
-            tparams, tcfg, torch.tensor([seq]),
-            torch.zeros(1, dtype=torch.int32),
-            PagedKVCache.create(tcfg, n_pages + 1, page, torch.float32,
-                                kv_quant=kv_quant),
-            attention_fn=make_paged_attention_fn(torch.from_numpy(table),
-                                                 tcfg.sliding_window))
-        rows = slice(len(prompt) - 1, len(seq))
-        jlog, tlog = np.asarray(jlog)[0, rows], tlog.numpy()[0, rows]
-        np.testing.assert_allclose(tlog, jlog, atol=TOL, rtol=TOL)
-        for i, (row, tok) in enumerate(zip(jlog, tokens)):
-            assert row[tok] >= row.max() - TOL, (
-                f"token {i} of {tokens}: {tok} (logit {row[tok]}) is not the "
-                f"JAX model's greedy choice {row.argmax()} ({row.max()})")
+    seqs = [list(p) + list(t[:-1]) for p, t in zip(prompts, streams)]
+    width = -(-max(len(seq) for seq in seqs) // 64) * 64
+    tokens = np.zeros((len(seqs), width), np.int32)
+    for i, seq in enumerate(seqs):
+        tokens[i, :len(seq)] = seq
+    n_pages = -(-width // page)
+    table = np.arange(1, len(seqs) * n_pages + 1,
+                      dtype=np.int32).reshape(len(seqs), n_pages)
+    jlogs, _ = jforward(
+        jparams, jcfg, jnp.asarray(tokens), jnp.zeros((len(seqs),), jnp.int32),
+        JPagedKVCache.create(jcfg, table.size + 1, page, dtype=jnp.float32,
+                             kv_quant=kv_quant),
+        attention_fn=jmake_paged(jnp.asarray(table), max_seq=n_pages * page,
+                                 impl="reference",
+                                 window=jcfg.sliding_window))
+    tlogs, _ = tforward(
+        tparams, tcfg, torch.from_numpy(tokens).long(),
+        torch.zeros(len(seqs), dtype=torch.int32),
+        PagedKVCache.create(tcfg, table.size + 1, page, torch.float32,
+                            kv_quant=kv_quant),
+        attention_fn=make_paged_attention_fn(torch.from_numpy(table),
+                                             tcfg.sliding_window))
+    jlogs, tlogs = np.asarray(jlogs), tlogs.numpy()
+    for b, (prompt, stream) in enumerate(zip(prompts, streams)):
+        rows = slice(len(prompt) - 1, len(seqs[b]))
+        jlog, tlog = jlogs[b, rows], tlogs[b, rows]
+        np.testing.assert_allclose(tlog, jlog, atol=tol, rtol=tol)
+        for i, (row, tok) in enumerate(zip(jlog, stream)):
+            assert row[tok] >= row.max() - tol, (
+                f"token {i} of {stream}: {tok} (logit {row[tok]}) is not "
+                f"the JAX model's greedy choice {row.argmax()} "
+                f"({row.max()})")
 
 
 def load_jax_params(params_path):
@@ -583,20 +595,21 @@ def test_emission_matches_jax_engine(engines, stop, max_tokens):
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"prefix_cache": True, "quant": "int4"}, "weight quantization"),
+    ({"prefix_cache": True, "quant": "int4", "spec_draft_len": 2},
+     "speculative decoding"),
     ({"kv_quant": "int8", "spec_draft_len": 3}, "speculative decoding"),
     ({"kv_pages_per_block": 2, "prefix_cache": True, "spec_draft_len": 1},
      "speculative decoding"),
     ({"preset": "tiny-mistral-test", "spec_draft_len": 2},
      "speculative decoding"),
     ({"spec_draft_len": 3}, "speculative decoding"),
-    ({"quant": "int8"}, "weight quantization"),
+    ({"quant": "int8", "mesh": {"model": 2}}, "parallelism"),
     ({"mesh": {"model": 2}}, "parallelism"),
     # A checkpoint's knobs are refused before its files are opened.
     ({"model_path": "/nonexistent", "mesh": {"model": 2}}, "parallelism"),
     ({"disaggregation": {"enabled": True}}, "disaggregation"),
     ({"preset": "tiny-mistral-test", "mesh": {"model": 2}}, "parallelism"),
-    ({"preset": "tiny-moe-test"}, "MoE"),
+    ({"preset": "tiny-moe-test", "mesh": {"expert": 2}}, "parallelism"),
 ])
 def test_unported_knobs_are_refused_at_build(knob, item):
     cfg = LocalEngineConfig(**{**GEOMETRY, **knob})

@@ -149,6 +149,8 @@ def test_building_blocks_match_jax():
         atol=TOL, rtol=TOL)
 
 
-def test_moe_family_is_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        forward_fn(get_preset("tiny-moe-test"))
+def test_moe_family_dispatches_to_mixtral():
+    from llmapigateway_tpu_torch.models import init_fn, mixtral
+    assert forward_fn(get_preset("tiny-moe-test")) is mixtral.forward
+    assert init_fn(get_preset("tiny-moe-test")) is mixtral.init_params
+    assert forward_fn(get_preset("tiny-test")) is tllama.forward

@@ -90,10 +90,24 @@ def test_prefill_ab_refuses_the_cpu(tmp_path, capsys):
     assert not out.exists()
 
 
-def test_profile_decode_refuses_weight_quantization():
-    with pytest.raises(ValueError, match="ROADMAP.md.*weight quantization"):
-        profile_decode.main(["--device", "cpu", "--preset", "tiny-test",
-                             "--quant"])
+@pytest.mark.parametrize("preset,quant", [("tiny-test", "int4"),
+                                          ("tiny-moe-test", "int8")])
+def test_profile_decode_runs_quantized_weights(preset, quant, capsys):
+    """``--quant`` builds the weights quantized layer by layer (an MoE
+    preset with its experts) and times every variant; the dense
+    weights-stream probe runs through the integer products; ``--trace``
+    reports one traced step (here the CPU's ops)."""
+    res = profile_decode.main(["--device", "cpu", "--preset", preset,
+                               "--batch", "2", "--seq", "160", "--burst",
+                               "2", "--reps", "1", "--variants",
+                               "greedy,nomlp", "--quant", quant, "--trace"])
+    line = _last_json(capsys)
+    assert line["quant"] == quant and line["ms_per_step"] == res
+    trace = line["trace"]
+    assert trace["launches_per_step"] > 0 and trace["top"]
+    assert res["greedy"] > 0 and res["nomlp"] > 0
+    assert res["fused_stream"] is None
+    assert (res["weights_stream"] is None) == (preset == "tiny-moe-test")
 
 
 @pytest.mark.parametrize("kv", ["contiguous", "paged"])
@@ -191,6 +205,16 @@ def test_profile_checkpoint_load_on_the_cpu(tmp_path, capsys):
     assert res["bytes_read_gb"] == res["device_param_gb"] == 2 * n / 1e9
     assert res["generated_tokens"] == 5 and res["kv_quant"] == "int8"
     assert res["load_s"] > 0 and res["h2d_gbps"] > 0 and res["card"] is None
-    with pytest.raises(ValueError, match="weight quantization"):
-        profile_checkpoint_load.main([str(out), "--device", "cpu",
-                                      "--quant", "int8"])
+    # Quantized as read: the file's bytes come in, int8 levels (and fp32
+    # scales) stay on the device.
+    res = profile_checkpoint_load.main([str(out), "--device", "cpu",
+                                        "--batch", "2", "--seq", "64",
+                                        "--tokens", "5", "--quant", "int8"])
+    assert res["quant"] == "int8" and res["generated_tokens"] == 5
+    assert res["bytes_read_gb"] == 2 * n / 1e9
+    # bf16 embed and norms; int8 levels plus an fp32 scale per output
+    # channel for the head and the seven layer matmuls.
+    q = (2 * 512 * 64 + 2 * 64 + 512 * 64 + 4 * 512
+         + 2 * (2 * 2 * 64 + 64 * 64 + 2 * 64 * 32 + 64 * 64 + 3 * 64 * 128
+                + 4 * (64 + 2 * 32 + 64 + 2 * 128 + 64)))
+    assert res["device_param_gb"] == q / 1e9
