@@ -11,6 +11,7 @@ parent), or to run each checkout's own bench tool in turn::
 
     python3 chip_smoke.py --decode-ab TREE [TREE ...] [--out FILE]
     python3 chip_smoke.py --prefill-ab TREE [TREE ...] [--out FILE]
+    python3 chip_smoke.py --w4a8-ab TREE [TREE ...] [--out FILE]
     python3 chip_smoke.py --bench-ab TREE [TREE ...] [--out FILE]
 
 Phases, each printed as JSON lines:
@@ -154,11 +155,14 @@ Phases, each printed as JSON lines:
              The same checkpoint is then loaded with int4 weights: every
              leaf equal to the shards' quantization on the host.
 11. quant  — quantized weights and the Mixtral family. The W4A8 kernel
-             (``csrc/w4a8_mm.cu``) against its plain version (unpack, then
-             ``torch._int_mm``) at llama-3-8b's projections (M 1, 8, 32 and
-             512) and mixtral-8x7b's experts (the dense form at decode, 8
-             experts over one shared activation block; capacity dispatch
-             at 256 rows an expert): int32 sums ``torch.equal``, bf16
+             (``csrc/w4a8_mm.cu``: one-row, decode and tile bodies) against
+             its plain version (unpack, then ``torch._int_mm``) at
+             llama-3-8b's projections (M 1, 8, 32 and 512, and the bodies'
+             edges: M 2, 3, 17, 63, 64, 65, 300) and mixtral-8x7b's experts
+             (the dense form at decode, 8 experts over one shared
+             activation block, up to 64 rows; capacity dispatch at 256 rows
+             an expert), llama-3-70b's four shapes (M 1, 32, 512), qwen2-0.5b
+             wk/wv and gemma-7b wd (M 1, 32): int32 sums ``torch.equal``, bf16
              outputs within one bf16 rounding; the int8 product
              (``torch._int_mm``, rows padded to 17) ``torch.equal`` to the
              exact product; device times beside the plain version,
@@ -173,8 +177,10 @@ Phases, each printed as JSON lines:
              per layer per forward, the int8 head once); #1/#2 once per
              layer per forward; then tinyllama-1.1b, qwen2-0.5b, gemma-7b,
              mistral-7b (SWA ring) and phi-3-mini at int4 and the tied
-             gemma-2b at int8, the same way. mixtral-8x7b int8's decode
-             graphs replayed against eager as in phase 5. A synthetic mixtral-8x7b
+             gemma-2b at int8, the same way. mixtral-8x7b int8's and
+             llama-3-8b int4's decode graphs replayed against eager as in
+             phase 5, and a W4A8 product whose plan splits K (workspace,
+             counters) replayed from a CUDA graph against the plain sums. A synthetic mixtral-8x7b
              checkpoint at full width and one layer (reduced depth),
              loaded with int8: every leaf equal to the shards' host
              quantization, one request served.
@@ -1388,13 +1394,26 @@ def _graph_fill(engine, prompt_tokens) -> list:
     return reqs
 
 
+# Kernels launched before the traced work, inside the profiled region:
+# late in a long smoke the profiler lost the first ~40 records of a
+# 25211-kernel int4 replay (the first layer's W4A8 products among them;
+# markers after the work did not help) where a fresh process recorded all;
+# the records it loses are then these.
+TRACE_HEAD = 512
+
+
 def traced_kernels(torch, fn) -> dict:
     """The kernels the card ran while ``fn`` ran, by name, as the profiler
-    (CUPTI) records them: a graph replay's kernels one by one."""
+    (CUPTI) records them: a graph replay's kernels one by one (after
+    TRACE_HEAD tiny ``fill`` kernels, which no caller counts)."""
     from torch.profiler import ProfilerActivity, profile
+    head = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_HEAD):
+            head.fill_(1.0)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     out: dict = {}
@@ -1542,6 +1561,44 @@ def _graph_check(torch, tag: str, engine_cfg: dict, prompt_tokens) -> dict:
           f"its capture recorded {launches['recorded']} ({res['layers']} "
           f"layers x depth {n})")
     return res
+
+
+# _graph_check in a process of its own, its result line read back: late in
+# a whole smoke the profiler lost ~40 records of the int4 replay's trace
+# (3 W4A8 launches among them) where a fresh process recorded every one.
+_FRESH_GRAPH_CHECK = r"""
+import json, sys
+here, run = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, here)
+import torch
+import chip_smoke as cs
+from llmapigateway_tpu_torch.ops import _kernels
+torch.backends.cuda.matmul.allow_tf32 = False
+_kernels.build()
+for name in _kernels.SOURCES:
+    _kernels.library(name)
+try:
+    res = cs._graph_check(torch, *run)
+except cs.SmokeFailure as e:
+    print("chip_smoke FAILED: " + str(e), file=sys.stderr)
+    sys.exit(1)
+"""
+
+
+def _graph_check_fresh(run) -> dict:
+    """:func:`_graph_check` of ``run`` in a fresh process (the same code,
+    checks and limits); its JSON line is emitted there and returned
+    here."""
+    proc = subprocess.run([sys.executable, "-c", _FRESH_GRAPH_CHECK, HERE,
+                           json.dumps(list(run))], capture_output=True,
+                          text=True, cwd=HERE)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('{"phase": "graphs"')]
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0 and bool(lines),
+          f"graphs {run[0]} (fresh process, rc {proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
 
 
 def graphs_phase(torch) -> dict:
@@ -2880,7 +2937,21 @@ W4A8_ROWS = (
        for M in (1, 8, 32)]
     + [("mixtral-8x7b", "w2", 8, M, 14336, 4096, False) for M in (1, 8, 32)]
     + [("mixtral-8x7b", "w1/w3 dispatch", 8, 256, 4096, 14336, False),
-       ("mixtral-8x7b", "w2 dispatch", 8, 256, 14336, 4096, False)])
+       ("mixtral-8x7b", "w2 dispatch", 8, 256, 14336, 4096, False)]
+    # The bodies' edges (ops/_kernels.py w4a8_plan): one row (dp4a) and
+    # two (decode), the decode/tile threshold (64) and ±1, ragged rows
+    # (3, 17, 300), the dense form at its most rows (64).
+    + [("llama-3-8b", "wg/wu", 1, M, 4096, 14336, False)
+       for M in (2, 3, 17, 63, 64, 65, 300)]
+    + [("mixtral-8x7b", "w1/w3 dense", 8, 64, 4096, 14336, True)]
+    # llama-3-70b (int4 only fits one card): its four shapes; wk/wv is the
+    # split edge (one split at one row, the plan's most at 32 and 512).
+    + [("llama-3-70b", proj, 1, M, K, N, False)
+       for proj, (K, N) in (("wq/wo", (8192, 8192)), ("wk/wv", (8192, 1024)),
+                            ("wg/wu", (8192, 28672)), ("wd", (28672, 8192)))
+       for M in (1, 32, 512)]
+    + [("qwen2-0.5b", "wk/wv", 1, M, 896, 128, False) for M in (1, 32)]
+    + [("gemma-7b", "wd", 1, M, 24576, 3072, False) for M in (1, 32)])
 # The int8 product (torch._int_mm, rows padded to 17 below 17): llama-3-8b's
 # MLP shapes and mixtral-8x7b's eight experts' w1 as one [D, E*F] product.
 INT8_ROWS = [("llama-3-8b", "wg/wu", M, 4096, 14336) for M in (1, 32, 512)] \
@@ -2917,6 +2988,14 @@ QUANT_PRESET_RUNS = [
     if tag == want]
 QUANT_GRAPH_RUN = ("mixtral-paged-w8", QUANT_SERVE_RUNS[2][1],
                    (40, 300, 700, 1100, 2000, 257))
+# The same check with int4 weights (llama-3-8b: its decode products run
+# the W4A8 decode body inside the captured graphs).
+QUANT_GRAPH_RUN_INT4 = ("llama-paged-w4-kv8", QUANT_SERVE_RUNS[1][1],
+                        (40, 300, 700, 1100, 2000, 257))
+# A W4A8 product whose plan splits K (llama-3-70b wk/wv at 8 rows: its
+# workspace and arrival counters) captured in a CUDA graph and replayed.
+W4A8_GRAPH_ROW = ("llama-3-70b", "wk/wv", 1, 8, 8192, 1024, False)
+W4A8_GRAPH_REPLAYS = 3
 # Two quantized engines that share a contraction width (K 2048) serving at
 # once in one process, every product eager (burst depth 1) and short (4
 # rows a decode step, below _int_mm's 17, so padded): each must stream the
@@ -3071,6 +3150,7 @@ def check_w4a8(torch, gen, row) -> dict:
     from llmapigateway_tpu_torch.ops import quant_mm as qm
     model, proj, E, M, K, N, shared = row
     x, xs, wq, ws, levels = _w4a8_inputs(torch, gen, E, M, K, N, shared)
+    plan = w4a8_row_plan(row)
     acc = qm.w4a8_mm(x, xs, wq, ws, acc=True)
     acc_plain = qm.w4a8_mm_plain(x, xs, wq, ws, acc=True)
     out = qm.w4a8_mm(x, xs, wq, ws, torch.bfloat16)
@@ -3099,7 +3179,7 @@ def check_w4a8(torch, gen, row) -> dict:
     t_ops = 2 * E * M * N * K / INT8_OPS_PER_S * 1e3
     res = {"name": f"w4a8_mm {model} {proj} E{E} M{M}", "model": model,
            "body": f"K{K}/N{N}", "E": E, "M": M, "K": K, "N": N,
-           "shared_rows": shared, "sums_equal": sums_equal, **err,
+           **plan, "shared_rows": shared, "sums_equal": sums_equal, **err,
            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
            "bound_ms": max(t_bytes, t_ops),
@@ -3109,6 +3189,59 @@ def check_w4a8(torch, gen, row) -> dict:
                       f"version's")
     check(res["max_err_over_tol"] <= 1.0,
           f"{res['name']}: output off by {res['max_err_over_tol']} x tol")
+    return res
+
+
+def w4a8_row_plan(row) -> dict:
+    """The plan the W4A8 wrapper launches a row with (its body, n8 row
+    tiles, warps and blocks splitting K, workspace), on this card."""
+    import torch
+
+    from llmapigateway_tpu_torch.ops import _kernels
+    from llmapigateway_tpu_torch.ops.quant_mm import w4a8_record
+    _, _, E, M, K, N, _ = row
+    plan = _kernels.w4a8_plan(E, M, N, K, _kernels.device_sm_count(
+        torch.device("cuda")))
+    return {"w4a8_body": plan.body, "kw": plan.kw,
+            **{k: v for k, v in w4a8_record(plan).items() if k != "body"}}
+
+
+def check_w4a8_graph(torch, gen, row=W4A8_GRAPH_ROW,
+                     replays: int = W4A8_GRAPH_REPLAYS) -> dict:
+    """A W4A8 product whose plan splits K, captured in a CUDA graph (its
+    zeroed workspace from the graph's pool) and replayed: every replay's
+    int32 sums ``torch.equal`` to the plain version's; then new inputs
+    copied in place and replayed again. A counter that a replay did not
+    reset would corrupt the second replay."""
+    from llmapigateway_tpu_torch.ops import quant_mm as qm
+    model, proj, E, M, K, N, shared = row
+    plan = w4a8_row_plan(row)
+    check(plan["n_split"] > 1, f"w4a8 graph: {row} is planned with one "
+                               f"split: {plan}")
+    x, xs, wq, ws, _ = _w4a8_inputs(torch, gen, E, M, K, N, shared)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.w4a8_mm(x, xs, wq, ws, acc=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.w4a8_mm(x, xs, wq, ws, acc=True)
+    equal = []
+    for i in range(2 * replays):
+        if i == replays:
+            x2, xs2, _, _, _ = _w4a8_inputs(torch, gen, E, M, K, N, shared)
+            x.copy_(x2)
+            xs.copy_(xs2)
+        graph.replay()
+        torch.cuda.synchronize()
+        equal.append(torch.equal(out, qm.w4a8_mm_plain(x, xs, wq, ws,
+                                                       acc=True)))
+    res = {"phase": "quant-w4a8-graph", "row": list(row), **plan,
+           "replays_equal": equal}
+    emit(res)
+    check(all(equal), f"w4a8 graph: replays {equal} of a split product "
+                      f"differ from the plain sums")
     return res
 
 
@@ -3281,6 +3414,12 @@ def quant_phase(torch, ks, card: str, gen) -> dict:
     graphs replayed against eager; a synthetic mixtral-8x7b
     checkpoint (full width, one layer) loaded with int8."""
     out = {"w4a8": [check_w4a8(torch, gen, row) for row in W4A8_ROWS]}
+    bodies = {r["w4a8_body"] for r in out["w4a8"]}
+    check(bodies == {"dp4a", "decode", "tile"} and any(
+        r["n_split"] > 1 for r in out["w4a8"]),
+          f"w4a8 rows exercised bodies {bodies} and splits "
+          f"{sorted({r['n_split'] for r in out['w4a8']})}")
+    out["w4a8_graph"] = check_w4a8_graph(torch, gen)
     out["int8_mm"] = [check_int8_product(torch, gen, row)
                       for row in INT8_ROWS]
     emit({"phase": "quant-kernel", "card": card, "w4a8": out["w4a8"],
@@ -3299,6 +3438,12 @@ def quant_phase(torch, ks, card: str, gen) -> dict:
     t0 = time.monotonic()
     out["graphs"] = _graph_check(torch, *QUANT_GRAPH_RUN)
     _freed(torch, "graphs mixtral", t0)
+    t0 = time.monotonic()
+    out["graphs_int4"] = _graph_check_fresh(QUANT_GRAPH_RUN_INT4)
+    check(out["graphs_int4"]["replay_launches"]["recorded"].get(
+        "w4a8_kernel", 0) > 0, "graphs llama int4: no W4A8 launch recorded "
+                               "in the captured decode graph")
+    _freed(torch, "graphs llama int4", t0)
 
     from llmapigateway_tpu_torch.tools import make_synthetic_checkpoint
     t0 = time.monotonic()
@@ -3414,11 +3559,17 @@ def kernels_line(kernel_rows: list[dict], serve: dict,
         "library_ms": ins["library_ms"],
         "launch_floor_ms": ins["launch_floor_ms"],
         "single_launch_ms": ins["single_launch_ms"]}
-    # The W4A8 kernel, one row per shape: its launches are those of its
-    # (K, N) in the int4 serve run of the row's model.
+    # The W4A8 kernel, one row per shape and body (w4a8_body): its
+    # launches are those of its (K, N) in the int4 serve run of the row's
+    # model (either body: the wrapper counts per shape). A model served in
+    # no run here (llama-3-70b) keeps its rows in the quant-kernel phase.
+    int4_runs = {cfg["preset"]: tag
+                 for tag, cfg, _ in QUANT_SERVE_RUNS + QUANT_PRESET_RUNS
+                 if cfg.get("quant") == "int4"}
     for r in quant["w4a8"]:
-        run = next(tag for tag, cfg, _ in QUANT_SERVE_RUNS
-                   if cfg["preset"] == r["model"] and cfg["quant"] == "int4")
+        run = int4_runs.get(r["model"])
+        if run is None:
+            continue
         launches = quant["serve"][run]["body_launches"]["w4a8_mm"].get(
             r["body"], 0)
         check(launches > 0, f"{r['name']}: its shape {r['body']} never ran "
@@ -3427,7 +3578,8 @@ def kernels_line(kernel_rows: list[dict], serve: dict,
             "name": r["name"], "route": "cuda",
             "source": "llmapigateway_tpu_torch/csrc/w4a8_mm.cu",
             "replaces": W4A8_REPLACES, "launches": launches, "serve": run,
-            "body": r["body"], "max_abs_err": r["max_abs_err"],
+            "body": r["body"], "w4a8_body": r["w4a8_body"],
+            "n_split": r["n_split"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "host_ms": r["host_ms"]}
@@ -3462,6 +3614,8 @@ from llmapigateway_tpu_torch.ops import _kernels
 from llmapigateway_tpu_torch.ops import flash_attention as fa
 from llmapigateway_tpu_torch.ops import paged_attention as pa
 torch.backends.cuda.matmul.allow_tf32 = False
+if kind == "w4a8":
+    _kernels.SOURCES = ("w4a8_mm",)     # the only kernel these rows run
 _kernels.build()
 gen = torch.Generator(device="cuda").manual_seed(0)
 rows = getattr(this, kind + "_rows")(torch, cs.Kernels(pa, fa), gen, cs)
@@ -3471,17 +3625,26 @@ print("AB_ROWS " + json.dumps({
 """
 
 
+def w4a8_rows(torch, ks, gen, smoke) -> list[dict]:
+    """This checkout's W4A8 rows through ``smoke``'s (a tree's own)
+    ``check_w4a8`` and package, for ``--w4a8-ab``."""
+    return [smoke.check_w4a8(torch, gen, row) for row in W4A8_ROWS]
+
+
 def ab_key(row: dict) -> str:
     """A timed row's name in an A/B report: its name, and a prefill row's
-    chunk length (one name covers T 512 and T 300)."""
-    T = row["shape"].get("T")
+    chunk length (one name covers T 512 and T 300); a W4A8 row has no
+    shape and its name says it all."""
+    T = row.get("shape", {}).get("T")
     return row["name"] if T is None else f"{row['name']} T={T}"
 
 
 def run_ab(kind: str, argv) -> int:
     """Each tree's ``kind`` rows (:func:`decode_rows` or
     :func:`prefill_rows` over its own smoke's cases, inputs and checks; the
-    prefill chunk lengths are this checkout's) in a fresh process, in the order given, all timed by this checkout's
+    prefill chunk lengths are this checkout's; :func:`w4a8_rows`: this
+    checkout's rows through the tree's ``check_w4a8``) in a fresh process,
+    in the order given, all timed by this checkout's
     timer: [device ms, host ms of one call] per row and run and, for two
     distinct trees, each tree's median device and host ms and the change /
     parent ratio of the device ms (first tree first) on the rows both
@@ -3593,7 +3756,7 @@ def main(argv=()) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA card", file=sys.stderr)
         return 2
-    if argv[:1] in (["--decode-ab"], ["--prefill-ab"]):
+    if argv[:1] in (["--decode-ab"], ["--prefill-ab"], ["--w4a8-ab"]):
         return run_ab(argv[0][2:-3], argv[1:])
     if argv[:1] == ["--bench-ab"]:
         return run_bench_ab(argv[1:])

@@ -213,6 +213,122 @@ def decode_plan(B: int, KV: int, limit: int, window: int, page: int = 0,
                          0 if window else page, sm_count)
 
 
+# The W4A8 product (csrc/w4a8_mm.cu): three bodies, planned from shapes
+# alone; these mirror its constants.
+W4A8_K_STEP = 128           # levels a tile stage holds (K_STEP); K's multiple
+W4A8_DECODE_K_STEP = 512    # levels a decode stage holds (DEC_K_STEP)
+W4A8_DECODE_CHANNELS = 128  # output channels of a decode block at kw 1
+W4A8_DECODE_ROWS = 64       # the most rows the decode body takes: 8 n8 tiles
+W4A8_TILE = 128             # rows and channels a tile block owns (TILE_M/N)
+W4A8_ROW_CHANNELS = 8       # output channels of a dp4a block (DP_CHANNELS)
+# How a launch fills the card (measured on the card, PERF.md). A decode
+# launch splits a long K (at least 16 stages) across blocks, by powers of
+# two while each split keeps W4A8_DECODE_SPLIT_STEPS stages and the grid
+# stays within two blocks an SM; then it takes the fewest warps splitting
+# K inside a block (kw 1, 2, 4) that give W4A8_DECODE_FILL of a block an
+# SM; a launch of 17 to 64 rows still short of half the SMs splits K
+# further, up to one block an SM and two stages a split. Two rows run the
+# dp4a body unless the decode plan splits K. A tile launch of fewer tiles
+# than half the SMs splits K so that the splits still fit one wave (one
+# tile block an SM), each split at least W4A8_TILE_SPLIT_LEVELS long. A
+# split costs a memset of its counters and a pass over its partials.
+W4A8_DECODE_FILL = 0.8
+W4A8_DECODE_SPLIT_MIN_STEPS = 16
+W4A8_DECODE_SPLIT_STEPS = 8
+W4A8_TILE_SPLIT_LEVELS = 1024
+# Levels enter the tensor cores as 16 x level, so the int32 sums reach
+# 16 * 127 * 8 * K; past this K they could overflow.
+W4A8_MAX_K = 131072
+_W4A8_GRID_YZ = 65535       # CUDA's limit on grid.y (splits) and grid.z (E)
+W4A8_BODIES = ("decode", "tile", "dp4a")     # the C entry's body ids
+
+
+class W4A8Plan(NamedTuple):
+    """A W4A8 launch: the body (``dp4a``: the first, dp4a kernel, on
+    ``row_tiles`` = 1 or 2 rows; ``decode``: weights as the mma's A,
+    ``row_tiles`` n8 tiles of rows,
+    ``kw`` warps splitting K inside a block; ``tile``: 128 × 128 blocks),
+    the grid ``(channel [× row] tiles, n_split, E)``, K cut into
+    ``n_split`` splits of ``split_steps`` stages (512 levels in the decode
+    body, the last zero-filled past K; 128 in the tile body), and the int32
+    workspace of a split launch: each split's ``E·M·N`` partial sums, then
+    one arrival counter a block of one split, which the wrapper zeroes (0
+    for one split)."""
+    body: str
+    row_tiles: int
+    kw: int
+    grid: tuple
+    n_split: int
+    split_steps: int
+    workspace_ints: int
+    counter_ints: int       # the workspace's zeroed tail
+
+
+@functools.cache
+def w4a8_plan(E: int, M: int, N: int, K: int, sm_count: int = SM_COUNT,
+              body: str | None = None) -> W4A8Plan:
+    """Plan a W4A8 product of E experts, ``[M, K] · [K, N]`` each: one row
+    runs the dp4a body, two rows too unless the decode plan splits K, up
+    to ``W4A8_DECODE_ROWS`` rows the decode body (rows in the next power
+    of two of n8 tiles), more the tile body (``body`` forces one). Raises
+    ``ValueError`` naming the shape for what the kernel does not take: K
+    or N not a multiple of 128, K past ``W4A8_MAX_K``, E past CUDA's grid,
+    no rows, or more rows than a forced body takes."""
+    shape = f"E{E} M{M} K{K} N{N}"
+    if M < 1 or not 1 <= E <= _W4A8_GRID_YZ:
+        raise ValueError(f"w4a8_mm: shape {shape}: needs 1 <= E <= "
+                         f"{_W4A8_GRID_YZ} and M >= 1")
+    if K <= 0 or N <= 0 or K % W4A8_K_STEP or N % W4A8_TILE:
+        raise ValueError(f"w4a8_mm: shape {shape}: K and N must be positive "
+                         f"multiples of {W4A8_K_STEP}")
+    if K > W4A8_MAX_K:
+        raise ValueError(f"w4a8_mm: shape {shape}: K past {W4A8_MAX_K} could "
+                         f"overflow the int32 sums")
+    if body is None and M == 2:
+        body = "dp4a" if w4a8_plan(E, M, N, K, sm_count,
+                                   "decode").n_split == 1 else "decode"
+    body = body or ("dp4a" if M == 1 else
+                    "decode" if M <= W4A8_DECODE_ROWS else "tile")
+    if body == "dp4a":
+        if M > 2:
+            raise ValueError(f"w4a8_mm: shape {shape}: the dp4a body takes "
+                             f"one or two rows")
+        return W4A8Plan(body, M, 1, (N // W4A8_ROW_CHANNELS, 1, E), 1, 1, 0,
+                        0)
+    if body == "decode":
+        if M > W4A8_DECODE_ROWS:
+            raise ValueError(f"w4a8_mm: shape {shape}: the decode body takes "
+                             f"at most {W4A8_DECODE_ROWS} rows")
+        row_tiles = 1 << (-(-M // 8) - 1).bit_length()
+        steps = -(-K // W4A8_DECODE_K_STEP)
+        blocks = E * N // W4A8_DECODE_CHANNELS      # at kw 1, one split
+        n_split = 1
+        if steps >= W4A8_DECODE_SPLIT_MIN_STEPS:
+            while (2 * n_split * W4A8_DECODE_SPLIT_STEPS <= steps
+                   and 2 * n_split * blocks <= 2 * sm_count):
+                n_split *= 2
+        kw = next((k for k in (1, 2, 4) if k * blocks * n_split
+                   >= W4A8_DECODE_FILL * sm_count), 4)
+        tiles = N * kw // W4A8_DECODE_CHANNELS
+        if row_tiles >= 4 and E * tiles * n_split < sm_count // 2:
+            n_split = max(n_split, min(sm_count // (E * tiles), steps // 2))
+    elif body == "tile":
+        row_tiles, kw = W4A8_TILE // 8, 1
+        tiles = -(-M // W4A8_TILE) * (N // W4A8_TILE)
+        steps = K // W4A8_K_STEP
+        n_split = 1
+        if E * tiles < sm_count // 2:       # splits that still fit one wave
+            n_split = max(1, min(sm_count // (E * tiles),
+                                 K // W4A8_TILE_SPLIT_LEVELS))
+    else:
+        raise ValueError(f"w4a8_mm: shape {shape}: no body {body!r}")
+    split_steps = -(-steps // n_split)
+    n_split = -(-steps // split_steps)
+    work = 0 if n_split == 1 else n_split * E * M * N + E * tiles
+    return W4A8Plan(body, row_tiles, kw, (tiles, n_split, E), n_split,
+                    split_steps, work, E * tiles if n_split > 1 else 0)
+
+
 @functools.cache
 def device_sm_count(device: torch.device) -> int:
     """The card's streaming multiprocessors, which the decode planner
@@ -246,9 +362,10 @@ def library(name: str) -> ctypes.CDLL:
         entries = ("kv_insert", "empty_launch")
     elif name == "w4a8_mm":
         i64 = ctypes.c_longlong
-        lib.w4a8_mm.argtypes = ([ptr, i64, ptr, i64] + [ptr] * 3
-                                + [i32] * 5 + [ptr])
-        entries = ("w4a8_mm",)
+        lib.w4a8_mm.argtypes = ([ptr, i64, ptr, i64] + [ptr] * 4
+                                + [i32] * 10 + [ptr])
+        lib.w4a8_mm_init.argtypes = []
+        entries = ("w4a8_mm", "w4a8_mm_init")
     else:
         lib.flash_decode_attention.argtypes = (
             [ptr] * 11 + [i32] * 5 + [f32] + [i32] * 4 + [ptr])
@@ -260,6 +377,13 @@ def library(name: str) -> ctypes.CDLL:
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i32]
     err.restype = ctypes.c_char_p
+    if name == "w4a8_mm":
+        # Shared memory past 48 KB, set here once and not on a first launch
+        # that may fall inside a graph capture.
+        rc = lib.w4a8_mm_init()
+        if rc != 0:
+            raise RuntimeError(f"w4a8_mm_init failed: CUDA error {rc} "
+                               f"({err(rc).decode()})")
     return lib
 
 
@@ -342,18 +466,20 @@ def launch_kv_insert(cache, new, lengths) -> None:
 
 
 def launch_w4a8_mm(xq, x_se: int, xs, xs_se: int, wq, ws, out,
-                   out_type: int) -> None:
+                   out_type: int, plan: W4A8Plan, work) -> None:
     """The W4A8 product (csrc/w4a8_mm.cu) over E experts: ``xq`` int8 rows
     of K at ``x_se`` elements per expert (0: shared), ``xs`` fp32 row
     scales at ``xs_se``, ``wq`` packed uint8 ``[E, N, K/2]``, ``ws`` fp32
     ``[E, N]``, into ``out [E, M, N]`` of ``out_type`` (0 fp32, 1 bf16,
-    2 fp16, 3 the int32 sums). The wrapper (ops/quant_mm.py) checked the
-    operands."""
+    2 fp16, 3 the int32 sums), as ``plan`` (:func:`w4a8_plan`) says;
+    ``work`` its zeroed int32 workspace (None for one split). The wrapper
+    (ops/quant_mm.py) checked the operands."""
     E, N, half_k = wq.shape
     M = out.shape[1]
     _call("w4a8_mm", "w4a8_mm", xq.device, xq.data_ptr(), x_se,
           xs.data_ptr(), xs_se, wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-          E, M, N, 2 * half_k, out_type)
+          _ptr(work), E, M, N, 2 * half_k, W4A8_BODIES.index(plan.body),
+          plan.row_tiles, plan.kw, plan.n_split, plan.split_steps, out_type)
 
 
 def launch_empty(device) -> None:

@@ -18,8 +18,12 @@ accumulator, outside any Pallas kernel (llmapigateway_tpu/models/quant.py:
 * :func:`w4a8_mm` — int8 activations times packed int4 weights, over a
   leading expert batch, rescaled in the kernel's epilogue:
   ``out[e, m, n] = float(Σ_k xq·wq) · xs[e, m] · ws[e, n]`` in the output
-  type; its kernel is ``csrc/w4a8_mm.cu``. ``acc=True`` returns the int32
-  sums instead (the debug entry the smoke compares bit for bit).
+  type; its kernel is ``csrc/w4a8_mm.cu``: a dp4a body for one or two
+  rows and two tensor-core bodies (decode rows, prefill tiles), which
+  ``_kernels.w4a8_plan`` picks from the shape; a shape it refuses (K or N
+  not a multiple of 128) raises. ``acc=True``
+  returns the int32 sums instead (the debug entry the smoke compares bit
+  for bit).
 
 Weights are stored N-major, one output channel's contraction contiguous
 (the HF checkpoint's own ``[out, in]`` orientation), and handed over as the
@@ -176,8 +180,6 @@ def w4a8_mm(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"w4a8_mm: unsupported device {xq.device}")
     E, M, K = xq.shape
     N = wq.shape[2]
-    if K % 32:
-        raise ValueError(f"w4a8_mm: K={K} is not a multiple of 32")
     packed = wq.transpose(-1, -2)                   # [E, N, K/2]
     if not packed.is_contiguous():
         raise ValueError("w4a8_mm: the packed weight must be N-major "
@@ -189,11 +191,31 @@ def w4a8_mm(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
         raise ValueError("w4a8_mm: scales must be contiguous per expert")
     out = torch.empty((E, M, N), device=xq.device,
                       dtype=torch.int32 if acc else out_dtype)
+    if M == 0:
+        return out                                  # nothing to launch
+    plan = _kernels.w4a8_plan(E, M, N, K,
+                              _kernels.device_sm_count(xq.device))
+    # Split K: the partial sums and arrival counters, allocated per call (in
+    # a decode graph's capture, from the graph's pool), the counters zeroed
+    # on every call and so on every replay.
+    work = None
+    if plan.workspace_ints:
+        work = torch.empty(plan.workspace_ints, device=xq.device,
+                           dtype=torch.int32)
+        work[-plan.counter_ints:].zero_()
     _kernels.launch_w4a8_mm(xq, xq.stride(0) if E > 1 else 0, xs,
                             xs.stride(0) if E > 1 else 0, packed, ws, out,
-                            _ACC if acc else _OUT_TYPES[out_dtype])
-    count_launch(w4a8_mm, f"K{K}/N{N}")
+                            _ACC if acc else _OUT_TYPES[out_dtype], plan, work)
+    count_launch(w4a8_mm, f"K{K}/N{N}", w4a8_record(plan))
     return out
+
+
+def w4a8_record(plan) -> dict:
+    """What a W4A8 launch ran with (``w4a8_mm.body_splits[shape]`` keeps
+    its shape's last): the body, n8 row tiles, K splits and workspace
+    bytes."""
+    return {"body": plan.body, "row_tiles": plan.row_tiles,
+            "n_split": plan.n_split, "workspace_bytes": 4 * plan.workspace_ints}
 
 
 reset_launches(w4a8_mm)

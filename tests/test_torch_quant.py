@@ -29,7 +29,7 @@ from llmapigateway_tpu_torch.engine.checkpoint import weight_count
 from llmapigateway_tpu_torch.engine.engine import GenRequest, InferenceEngine
 from llmapigateway_tpu_torch.models import init_fn
 from llmapigateway_tpu_torch.models import quant as tq
-from llmapigateway_tpu_torch.models.config import get_preset
+from llmapigateway_tpu_torch.models.config import PRESETS, get_preset
 from llmapigateway_tpu_torch.models.convert import params_from_jax
 from llmapigateway_tpu_torch.ops import quant_mm as qm
 from test_torch_engine import (GEOMETRY, PROMPTS, assert_jax_model_greedy,
@@ -392,3 +392,98 @@ async def test_smoke_counts_every_quantized_product(monkeypatch, preset,
         monkeypatch.setattr(mixtral, "DISPATCH_THRESHOLD", 10 ** 9)
         with pytest.raises(chip_smoke.SmokeFailure, match="int8_mm ran"):
             chip_smoke.check_quant_run(preset, *run)
+
+
+# ---------------------------------------------------------------------------
+# The W4A8 launch plan (ops/_kernels.py w4a8_plan), shapes alone
+# ---------------------------------------------------------------------------
+
+# Every full-size preset (the tiny ones run only on the CPU, through the
+# plain version) at the row counts a launch sees: one row, decode batches,
+# the decode/tile threshold (64) and ±1, ragged chunks, prefill chunks.
+PLAN_PRESETS = sorted(p for p in PRESETS if not p.endswith("-test")
+                      and not p.startswith("tiny-test"))
+PLAN_ROWS = (1, 2, 8, 17, 32, 33, 64, 65, 256, 300, 512, 2048)
+PLAN_SMS = 132
+
+
+def quantized_shapes(c) -> set:
+    """The (K, N) of a preset's quantized layer matmuls: Q, K/V, O, the
+    MLP's gate/up and down (each expert's under MoE)."""
+    D, q, kv = c.d_model, c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    return {(D, q), (D, kv), (q, D), (D, c.d_ff), (c.d_ff, D)}
+
+
+@pytest.mark.parametrize("preset,M", [(p, M) for p in PLAN_PRESETS
+                                      for M in PLAN_ROWS],
+                         ids=[f"{p}-M{M}" for p in PLAN_PRESETS
+                              for M in PLAN_ROWS])
+def test_w4a8_plan_covers_every_preset(preset, M):
+    """For every (K, N) of the preset, one expert and eight (whether the
+    eight share one row block or not: strides are no input of the plan):
+    the body the row count asks for, row tiles, channel tiles and K splits
+    that cover the product, a grid inside CUDA's limits, and a workspace
+    exactly when K is split (each split's partial sums, then one zeroed
+    counter an output tile)."""
+    from llmapigateway_tpu_torch.ops import _kernels as k
+    c = get_preset(preset)
+    for K, N in sorted(quantized_shapes(c)):
+        assert K % 128 == 0 and N % 128 == 0, (preset, K, N)
+        for E in (1, 8):
+            p = k.w4a8_plan(E, M, N, K, PLAN_SMS)
+            want = ("dp4a" if M == 1 else
+                    "decode" if M <= k.W4A8_DECODE_ROWS else "tile")
+            if M == 2:          # dp4a unless the decode plan splits K
+                want = ("dp4a" if k.w4a8_plan(E, M, N, K, PLAN_SMS, "decode")
+                        .n_split == 1 else "decode")
+            assert p.body == want, (preset, E, M, K, N, p)
+            tiles, n_split, grid_e = p.grid
+            assert grid_e == E and n_split == p.n_split
+            assert 1 <= tiles < 2 ** 31 and n_split <= 65535 and E <= 65535
+            if p.body == "dp4a":
+                assert (tiles, p.n_split, p.workspace_ints) == (N // 8, 1, 0)
+                assert p.row_tiles == M <= 2
+                continue
+            if p.body == "decode":
+                assert p.row_tiles in (1, 2, 4, 8) and p.kw in (1, 2, 4)
+                assert 8 * p.row_tiles >= M            # the fewest tiles
+                assert p.row_tiles == 1 or M > 4 * p.row_tiles
+                assert tiles * (128 // p.kw) == N
+                step = k.W4A8_DECODE_K_STEP
+            else:
+                assert (p.row_tiles, p.kw) == (16, 1)
+                assert tiles == -(-M // 128) * (N // 128)
+                step = k.W4A8_K_STEP
+            steps = -(-K // step)
+            assert p.split_steps * p.n_split >= steps
+            assert p.split_steps * (p.n_split - 1) < steps
+            if p.n_split == 1:
+                assert p.workspace_ints == p.counter_ints == 0
+            else:
+                assert p.counter_ints == E * tiles
+                assert p.workspace_ints == p.n_split * E * M * N + E * tiles
+                if p.body == "decode":      # long K, or few blocks
+                    assert (steps >= k.W4A8_DECODE_SPLIT_MIN_STEPS
+                            or (p.row_tiles >= 4
+                                and 2 * E * tiles < PLAN_SMS))
+                    assert p.split_steps >= 2
+                    assert E * tiles * p.n_split <= 2 * PLAN_SMS
+                else:                       # few tiles; one wave
+                    assert 2 * E * tiles < PLAN_SMS
+                    assert p.split_steps * step >= k.W4A8_TILE_SPLIT_LEVELS
+                    assert E * tiles * p.n_split <= PLAN_SMS
+
+
+@pytest.mark.parametrize("E,M,N,K,body", [
+    (1, 8, 4096, 100, None), (1, 8, 96, 4096, None), (1, 8, 4096, 0, None),
+    (1, 0, 4096, 4096, None), (0, 8, 4096, 4096, None),
+    (70000, 8, 4096, 4096, None), (1, 8, 4096, 131200, None),
+    (1, 65, 4096, 4096, "decode"), (1, 3, 4096, 4096, "dp4a"),
+    (1, 8, 4096, 4096, "bogus")])
+def test_w4a8_plan_refuses_with_the_shape(E, M, N, K, body):
+    """A shape the kernel does not take raises ValueError naming it: K or
+    N not a positive multiple of 128, K past the int32 bound, no rows, E
+    outside CUDA's grid, more rows than a forced body takes, no body."""
+    from llmapigateway_tpu_torch.ops import _kernels as k
+    with pytest.raises(ValueError, match=f"E{E} M{M} K{K} N{N}"):
+        k.w4a8_plan(E, M, N, K, PLAN_SMS, body)
